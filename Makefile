@@ -1,17 +1,17 @@
-# Pre-snapshot gate (VERDICT r2 #1): nothing ships unless the suite, the
-# driver entry points, and (on TPU) the bench all run green.
-#   make check        — pytest + single-chip entry + 8-device virtual dryrun
-#   make check-bench  — the above + bench.py (requires a real TPU chip)
+# Gate: the suite, the driver entry points, and (on a GPU) the smoke run and
+# the bench all run green.
+#   make check        — pytest + single-device entry + 8-device virtual dryrun
+#   make check-bench  — the above + chip_smoke.py + bench.py (needs a GPU)
 
 PY ?= python
 
-.PHONY: check check-bench test entry dryrun bench lint
+.PHONY: check check-bench test entry dryrun smoke bench lint
 
 lint:
 	$(PY) tools/lint.py
 
 test:
-	$(PY) -m pytest tests/ -x -q
+	JAX_PLATFORMS=cpu $(PY) -m pytest tests/ -x -q
 
 entry:
 	$(PY) __graft_entry__.py
@@ -20,9 +20,12 @@ dryrun:
 	XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
 	DRYRUN_DEVICES=8 $(PY) __graft_entry__.py
 
+smoke:
+	$(PY) chip_smoke.py
+
 bench:
 	$(PY) bench.py
 
 check: lint test dryrun
 
-check-bench: check bench
+check-bench: check smoke bench

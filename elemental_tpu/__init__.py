@@ -1,6 +1,6 @@
-"""elemental_tpu: a TPU-native distributed dense+sparse linear-algebra and
+"""elemental_tpu: a distributed dense+sparse linear-algebra and
 conic-optimization framework with the capabilities of Elemental/Hydrogen
-(reference surveyed in SURVEY.md), built from scratch on JAX/XLA/Pallas.
+(reference surveyed in SURVEY.md), built from scratch on JAX/XLA.
 
 Layering (mirrors the reference's strict include order, ``include/El.hpp:14-22``):
     core → ops (blas_like) → lapack (lapack_like) → control → matrices → io
@@ -20,6 +20,5 @@ from . import sparse_direct
 from . import optimization
 from . import control
 from . import io
-from . import kernels
 from . import extended
 from .extended import DD

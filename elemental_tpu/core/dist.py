@@ -1,15 +1,15 @@
-"""Distribution calculus: the TPU-native re-expression of Elemental's ``Dist`` algebra.
+"""Distribution calculus: the XLA re-expression of Elemental's ``Dist`` algebra.
 
 The reference encodes thirteen 2D matrix distributions as pairs drawn from
 ``Dist {MC, MD, MR, VC, VR, STAR, CIRC}`` (reference ``include/El/core/types.hpp:208-217``)
 and derives, via a small algebra (``types.hpp:240-330``), which distribution a
-diagonal / partial-reduction / gathered variant lives in.  On TPU the same role is
+diagonal / partial-reduction / gathered variant lives in.  Here the same role is
 played by a *sharding-spec calculus*: each (colDist, rowDist) pair maps to a
 ``jax.sharding.PartitionSpec`` over a 2D device mesh with axes ``('mc', 'mr')``.
 
-Design notes (TPU-first, not a port):
+Design notes (XLA-first, not a port):
   * JAX/GSPMD shardings are *blocked*, not element-cyclic.  Element-cyclic layouts
-    exist in the reference purely for load balance of panel algorithms; on TPU the
+    exist in the reference purely for load balance of panel algorithms; here the
     panel algorithms themselves are re-designed (recursive blocked formulations,
     masked scans) so blocked sharding is the right native layout.  The BLOCK wrap
     (``DistWrap`` in ``types.hpp:228``) therefore collapses onto the same specs.

@@ -1,6 +1,6 @@
 """DistMatrix: a distributed matrix as a sharded ``jax.Array``.
 
-TPU-native re-expression of the reference's ``DistMatrix<T,U,V>`` hierarchy
+XLA re-expression of the reference's ``DistMatrix<T,U,V>`` hierarchy
 (``include/El/core/DistMatrix/``, 13 distributions × {ELEMENT,BLOCK} wrap ×
 devices, ~12.8k LoC of per-pair instantiations).  Here a single class suffices:
 the *global* matrix is one ``jax.Array`` whose ``NamedSharding`` over the grid's
@@ -161,7 +161,7 @@ class DistMatrix:
     #    QueueUpdate/ProcessQueues/QueuePull, AbstractDistMatrix.hpp:162-171)
     def queue_update(self, i: int, j: int, value) -> None:
         """Queue a remote entry update from any caller; applied (summed,
-        COO semantics) by :meth:`process_queues`.  TPU-native shape: the
+        COO semantics) by :meth:`process_queues`.  Here the
         queue lives on host and drains as ONE sharded scatter-add — the
         reference's rank-to-owner exchange is the compiler's to plan."""
         if not hasattr(self, "_queue"):
@@ -220,7 +220,7 @@ def distribute(array, coldist: Dist = MC, rowdist: Dist = MR,
     if grid is None:
         grid = Grid.default()
     # device_put host data straight onto the target mesh — never bounce
-    # through the default backend (which may be a remote TPU).
+    # through the default device.
     ndim = getattr(array, "ndim", None)
     if ndim == 2:
         sh = _feasible_sharding(array.shape,

@@ -6,7 +6,7 @@ Mirrors the reference's ``El::Initialize`` pipeline
 ``Input``/``ProcessInput`` CLI registry (``include/El/core/environment/decl.hpp:52-88``);
 and the runtime blocksize stack (``src/blas_like/blocksizes.cpp:16-107``).
 
-TPU-native: no MPI_Init — multi-process JAX uses ``jax.distributed.initialize``;
+No MPI_Init — multi-process JAX uses ``jax.distributed.initialize``;
 single-process SPMD over a mesh needs nothing.  Grid/default-mesh setup replaces
 the eight communicator splits.
 """
@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 import time
 from typing import Any, Dict, List, Optional
@@ -27,12 +28,22 @@ logger = logging.getLogger("elemental_tpu")
 
 _initialized = False
 
+def use_compilation_cache(root: str) -> str:
+    """Keep JAX's persistent compilation cache in ``$JAX_COMPILATION_CACHE_DIR``
+    when that is set, else in ``<root>/.jax_cache`` — a fixed path, because
+    the path is part of the cache key.  Returns the directory in use."""
+    cache = (os.environ.get("JAX_COMPILATION_CACHE_DIR")
+             or os.path.join(os.path.abspath(root), ".jax_cache"))
+    jax.config.update("jax_compilation_cache_dir", cache)
+    return cache
+
+
 # --------------------------------------------------------------------------
 # Blocksize stacks (reference ``src/blas_like/blocksizes.cpp``): a global
 # stack plus per-kernel local stacks consulted by blocked algorithms.
 # --------------------------------------------------------------------------
 
-_DEFAULT_BLOCKSIZE = 128  # MXU-aligned (the reference pushes 128 too)
+_DEFAULT_BLOCKSIZE = 128  # the reference pushes 128 too
 _blocksize_stack: List[int] = [_DEFAULT_BLOCKSIZE]
 _local_blocksizes: Dict[str, List[int]] = {}
 
@@ -70,7 +81,7 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Initialise the runtime (reference ``El::Initialize``).
 
-    For multi-host TPU slices pass the ``jax.distributed`` coordinates; for a
+    For several processes (hosts) pass the ``jax.distributed`` coordinates; for a
     single process this just sets up the default grid and RNG.
     """
     global _initialized

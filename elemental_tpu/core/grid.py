@@ -1,15 +1,15 @@
-"""Process grid → TPU device mesh.
+"""Process grid → device mesh.
 
 The reference's ``Grid`` (``include/El/core/Grid.hpp:15-146``) owns a 2D process
 grid plus a family of derived communicators (mcComm, mrComm, vcComm, vrComm,
 mdComm, ...) created via eight MPI splits in ``Grid::SetUpGrid``
-(``src/core/Grid.cpp:95``).  TPU-native equivalent: a ``jax.sharding.Mesh`` with
+(``src/core/Grid.cpp:95``).  Equivalent here: a ``jax.sharding.Mesh`` with
 axes ``('mc', 'mr')``.  The communicator family becomes mesh-axis subsets used as
 axis names inside ``shard_map`` — no explicit communicator objects are needed
 because XLA collectives are addressed by axis name:
 
   =============  =============================================
-  reference      TPU-native
+  reference      here
   =============  =============================================
   mcComm         axis ``'mc'`` (collectives within a mesh col)
   mrComm         axis ``'mr'``

@@ -1,4 +1,4 @@
-"""Platform-aware dtype policy (VERDICT r3 #6).
+"""Dtype policy.
 
 One place decides which working precision the library uses and which
 residual bounds are acceptable, instead of per-site guesses:
@@ -6,7 +6,7 @@ residual bounds are acceptable, instead of per-site guesses:
 * On CPU (or any platform) with ``jax_enable_x64`` active, the natural
   working dtype is float64 — matching the reference's default ``double``
   builds.
-* On TPU without x64, float64 silently truncates to float32 (with a
+* Without x64, float64 silently truncates to float32 (with a
   warning per array); the policy returns float32 up front so no
   truncation-warning spam appears and all tolerance math is honest.
 
@@ -33,7 +33,7 @@ def x64_enabled() -> bool:
 
 def default_real_dtype(platform: str | None = None):
     """The working real dtype for factorizations on this platform:
-    float64 when x64 is live, else float32 (TPU default)."""
+    float64 when x64 is live, else float32."""
     if x64_enabled():
         return jnp.float64
     return jnp.float32
@@ -56,7 +56,7 @@ def residual_bound(dtype, n: int, factor: float = 100.0) -> float:
     """Acceptable relative residual for a backward-stable factor+solve of
     an n×n system: ``factor * eps(dtype) * n`` (reference
     ``Cholesky.cpp:41-44`` formula).  ``dtype`` is mapped through
-    :func:`effective_dtype` first, so a nominal float64 on a non-x64 TPU
+    :func:`effective_dtype` first, so a nominal float64 without x64
     gets the float32 bound."""
     eps = float(jnp.finfo(effective_dtype(dtype)).eps)
     return factor * eps * max(int(n), 1)

@@ -1,7 +1,7 @@
 """Profiling/tracing (reference ``include/El/core/Profiling.hpp:138-190``:
 NVTX/roctx/VTune region annotation + synchronizing profiling).
 
-TPU-native: ``jax.profiler`` traces + ``jax.named_scope`` regions.  Every
+Design: ``jax.profiler`` traces + ``jax.named_scope`` regions.  Every
 solver/SUMMA region in this library is annotated the same way the reference
 annotates its regions (e.g. ``Gemm/NN.hpp:115-117``).
 """

@@ -2,7 +2,7 @@
 ``include/El/core/random/``): per-process seeded generators with
 ``Uniform``/``Gaussian``/``Bernoulli`` samplers.
 
-TPU-native: a split-on-use ``jax.random`` key held in module state; matrix
+Design: a split-on-use ``jax.random`` key held in module state; matrix
 generators in :mod:`elemental_tpu.matrices` draw from here.
 """
 

@@ -6,7 +6,7 @@ RowFilter, ColAllToAllPromote, Contract, AxpyContract, ...), dispatched per
 distribution pair from ``DistMatrix::operator=``
 (``src/core/DistMatrix/ElementMatrix/MC_MR.cpp:30-165``).
 
-TPU-native: a sharded ``jax.Array`` re-laid-out via
+Design: a sharded ``jax.Array`` re-laid-out via
 ``with_sharding_constraint`` lets XLA's SPMD partitioner emit exactly the
 collective each pair needs (all-gather for →STAR, dynamic-slice for filter,
 all-to-all for VC↔MC promotions, collective-permute for [MC,MR]↔[MR,MC]).  The

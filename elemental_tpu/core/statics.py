@@ -1,11 +1,10 @@
 """Pytree registration for plan-carrying containers.
 
-Load-bearing for TPU performance: a device array CLOSED OVER by a jitted
-function is embedded in the jaxpr as a constant, and XLA's TPU gather/
-scatter emitters fall to a ~0.06 Gnnz/s scalar path when their index
-operands are constants (measured on v5 lite; the same op with the array as
-an ARGUMENT is orders of magnitude faster).  Every container holding plan
-index arrays therefore registers as a pytree whose big arrays are LEAVES,
+A device array CLOSED OVER by a jitted function is embedded in the jaxpr
+as a constant: it is baked into every compiled program (and into the
+persistent compile cache), recompiles when the plan changes, and gives XLA
+no way to share one executable between plans of one shape.  Every
+container holding plan index arrays therefore registers as a pytree whose big arrays are LEAVES,
 so the whole container can be passed through ``jax.jit`` as an argument.
 
 Host-side metadata (shapes, orderings, symbolic trees) is carried as the

@@ -1,8 +1,6 @@
 """Scalar/type helpers (reference ``include/El/core/Element/``, ``limits``).
 
-fp64 note: the MXU is fp32/bf16; fp64 runs on TPU only via software emulation,
-so fp64 configs (BASELINE config #1) execute on the CPU backend with
-``jax_enable_x64``.  ``epsilon``/``safe_min`` mirror the reference's
+fp64 runs natively on the CPU and on the GPU under ``jax_enable_x64``.  ``epsilon``/``safe_min`` mirror the reference's
 ``limits::Epsilon`` used in every residual bound.
 """
 

@@ -2,11 +2,11 @@
 blocked right-looking Variant3 L/U, reverse, pivoted, LowerMod rank-update,
 SolveAfter; dist panel loop in ``Cholesky/LowerVariant3.hpp:80-140``).
 
-TPU-native: *recursive* blocked Cholesky.  The reference's panel loop
+Design: *recursive* blocked Cholesky.  The reference's panel loop
 ([MC,MR]→[*,*] allgather of A11, local potrf, [VC,*] panel trsm, Trrk trailing
 update) re-expressed as a midpoint recursion — the same math, but each level's
-trailing update is one large sharded matmul which GSPMD tiles over the mesh and
-the MXU, and only O(log n) distinct shapes are compiled.  The O(nb²) base case
+trailing update is one large sharded matmul which GSPMD tiles over the mesh (cuBLAS
+on each device), and only O(log n) distinct shapes are compiled.  The O(nb²) base case
 uses XLA's ``cholesky`` primitive.
 """
 

@@ -1,10 +1,10 @@
 """Condensed forms (reference ``src/lapack_like/condense``: HermitianTridiag,
 Bidiag, Hessenberg + ApplyQ).
 
-TPU-native note: the reference's blocked two-sided reductions are
+Note: the reference's blocked two-sided reductions are
 communication-heavy panel algorithms (``HermitianTridiag.cpp:86-94`` square-grid
 variant).  Here each reduction is a ``fori_loop`` of masked Householder
-similarity updates — static shapes, rank-2 updates as outer products the VPU
+similarity updates — static shapes, rank-2 updates as outer products XLA
 fuses; a blocked (latency-optimal) variant is a later optimisation since the
 eigensolver hot path (``hermitian_eig``) uses XLA's fused ``eigh``.
 """
@@ -32,7 +32,7 @@ def hermitian_tridiag(uplo: str, A: Arr, want_q: bool = True,
     """Reduce Hermitian A to real symmetric tridiagonal T = Qᴴ A Q
     (reference ``HermitianTridiag``).  Dispatches to the blocked panel
     variant (``HermitianTridiag.cpp:86-94`` analog: latrd panels + rank-2nb
-    MXU trailing updates) for n ≥ 192; small problems use the rank-2
+    matmul trailing updates) for n ≥ 192; small problems use the rank-2
     ``fori_loop``."""
     a0 = as_array(A)
     if a0.shape[0] >= 192:
@@ -85,11 +85,10 @@ def hermitian_tridiag(uplo: str, A: Arr, want_q: bool = True,
 
 
 def _highest_precision(fn):
-    """Blocked condensations pin matmul precision: on v5e the default f32
-    matmul runs through the bf16 pipeline and the accumulated two-sided
-    panel updates reach ~5e-2 relative error at n=4096 (measured r4);
-    under 'highest' the error is ~4e-6 at <10 % rate cost (the panels,
-    not the matmuls, dominate)."""
+    """Blocked condensations pin matmul precision to 'highest': a default
+    f32 matmul may run in TF32 or bf16, and the accumulated two-sided panel
+    updates then lose most of their digits (the panels, not the matmuls,
+    dominate the time)."""
     import functools
 
     @functools.wraps(fn)
@@ -105,10 +104,10 @@ def _hermitian_tridiag_blocked(uplo: str, a: jnp.ndarray,
     """Blocked Householder tridiagonalization (reference
     ``HermitianTridiag.cpp:86-94`` panel algorithm, LAPACK ``latrd`` shape):
     per nb-column panel, each column's reflector is computed against the
-    implicitly-updated matrix A − V·Wᴴ − W·Vᴴ (small corrections on the
-    VPU); the trailing similarity update is then applied as ONE rank-2nb
-    matmul pair on the MXU, and Q is formed at the end by compact-WY block
-    reflector application (two matmuls per panel) — the MXU does the
+    implicitly-updated matrix A − V·Wᴴ − W·Vᴴ (small elementwise
+    corrections); the trailing similarity update is then applied as ONE rank-2nb
+    matmul pair, and Q is formed at the end by compact-WY block
+    reflector application (two matmuls per panel) — matmuls do the
     O(n³) work the rank-1 loop spent in n² outer products."""
     if not uplo.upper().startswith("L"):
         a = jnp.conj(a.T)
@@ -152,7 +151,7 @@ def _hermitian_tridiag_blocked(uplo: str, a: jnp.ndarray,
 
         a, V, W, Vall, taus = jax.lax.fori_loop(
             0, nb, col, (a, V, W, Vall, taus))
-        # trailing rank-2nb similarity update on the MXU
+        # trailing rank-2nb similarity update as two matmuls
         a = a - V @ jnp.conj(W.T) - W @ jnp.conj(V.T)
         return (a, Vall, taus)
 
@@ -206,7 +205,7 @@ def _bidiag_blocked(a: jnp.ndarray, nb: int = 32) -> Bidiag:
     per nb-panel each column/row of the implicit Ã = Uᴴ·A·V is
     reconstructed from the reflector panels (sequential O((m+n)·nb) vector
     ops + two fresh matvecs per column), and the two-sided trailing update
-    is applied to A as MXU matmuls via compact-WY on both sides:
+    is applied to A as matmuls via compact-WY on both sides:
         A ← A − Uq·Tqᴴ·(Uqᴴ·A) − (A·Vp)·Tp·Vpᴴ + Uq·Tqᴴ·(Uqᴴ·A·Vp)·Tp·Vpᴴ.
     """
     m, n = a.shape
@@ -295,7 +294,7 @@ def _bidiag_blocked(a: jnp.ndarray, nb: int = 32) -> Bidiag:
 
         a, Uq, Vp, Ya, tq, tp = jax.lax.fori_loop(
             0, nb, col, (a, Uq, Vp, Ya, tq, tp))
-        # two-sided compact-WY trailing update (MXU)
+        # two-sided compact-WY trailing update (matmuls)
         Tq = _wy_t(Uq, tq, nb)
         Tp = _wy_t(Vp, tp, nb)
         UhA = jnp.conj(Uq.T) @ a
@@ -411,7 +410,7 @@ def _hessenberg_blocked(a: jnp.ndarray, nb: int = 32) -> Hess:
     per nb-panel the reflectors are formed against the IMPLICIT
     Ã = Hᴴ·A·H (each panel column reconstructed with O(n·nb) vector ops
     from the caches V and Y = A·V — one fresh matvec per column), then the
-    two-sided update is applied to all of A as FOUR MXU matmuls via the
+    two-sided update is applied to all of A as FOUR matmuls via the
     compact-WY form H = I − V·T·Vᴴ:
         A ← A − V·Tᴴ·(Vᴴ·A) − Y·T·Vᴴ + V·Tᴴ·(Vᴴ·Y)·T·Vᴴ.
     """
@@ -485,7 +484,7 @@ def _hessenberg_blocked(a: jnp.ndarray, nb: int = 32) -> Hess:
             return (a, V, Y, taus)
 
         a, V, Y, taus = jax.lax.fori_loop(0, nb, col, (a, V, Y, taus))
-        # two-sided compact-WY trailing update, all MXU
+        # two-sided compact-WY trailing update, all matmuls
         T = _wy_t(V, taus, nb)
         VhA = jnp.conj(V.T) @ a
         a = a - V @ (jnp.conj(T.T) @ VhA)        # left:  Hᴴ·A
@@ -513,11 +512,10 @@ def _hessenberg_blocked(a: jnp.ndarray, nb: int = 32) -> Hess:
 def hessenberg(uplo: str, A: Arr, blocksize: int = 32) -> Hess:
     """Reduce A to upper Hessenberg H = Qᴴ A Q (reference ``Hessenberg``).
 
-    Dispatch measured on v5e (r4): XLA fuses the rank-1 loop's outer
-    products well enough that it WINS below n≈3k (265 vs 132 GF/s at
-    n=2048), while the blocked panel variant wins decisively above
-    (405 vs 171 GF/s at n=4096) — so blocked kicks in at n ≥ 3072
-    (``blocksize=0`` forces the rank-1 loop)."""
+    XLA fuses the rank-1 loop's outer products into few kernels, so the
+    loop serves small n and the blocked panel variant n ≥ 3072; the
+    crossover has not been measured on the GPU (``blocksize=0`` forces the
+    rank-1 loop)."""
     a0 = as_array(A)
     if a0.shape[0] >= 3072 and blocksize > 0:
         return _hessenberg_blocked(a0, nb=blocksize)

@@ -3,7 +3,7 @@ SymmetricRuiz/Geom/Diagonal — the IPM preprocessing scalings).
 
 Each returns scaled matrix + the row/col scaling vectors so callers can
 unscale solutions; iterations are ``fori_loop``s of row/col max-reductions
-(pure VPU work, shards along both mesh axes)."""
+(pure elementwise work, shards along both mesh axes)."""
 
 from __future__ import annotations
 

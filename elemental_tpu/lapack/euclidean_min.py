@@ -44,7 +44,7 @@ def least_squares(orient: str, A: Arr, B: Arr) -> Arr:
 @with_precision
 def ridge(orient: str, A: Arr, B: Arr, gamma: float) -> Arr:
     """min ‖A·X − B‖² + γ²‖X‖² (reference ``Ridge``) via the normal equations
-    (AᴴA + γ²I) X = AᴴB with a Cholesky solve — all MXU work."""
+    (AᴴA + γ²I) X = AᴴB with a Cholesky solve — all matmul work."""
     a = as_array(A)
     if not orient.upper().startswith("N"):
         a = jnp.conj(a.T)

@@ -1,6 +1,6 @@
 """Matrix functions (reference ``src/lapack_like/funcs``: HermitianFunction,
 Sign (Newton), SquareRoot, Pseudoinverse, Inverse incl. triangular/HPD/
-symmetric).  All iterations are matmul/solve loops — pure MXU work."""
+symmetric).  All iterations are matmul/solve loops."""
 
 from __future__ import annotations
 

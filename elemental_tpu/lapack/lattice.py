@@ -6,8 +6,8 @@ implementation is missing from the reference tree; API mirrors
 
 Host-side NumPy by design: lattice reduction is a sequential,
 data-dependent integer algorithm (the reference's is likewise sequential
-CPU code) — it prepares inputs for the TPU tiers rather than running on
-chip.  Floating-point Gram–Schmidt in f64 with exact integer basis
+CPU code) — it prepares inputs for the device tiers rather than running
+on the device.  Floating-point Gram–Schmidt in f64 with exact integer basis
 updates (entries exact up to 2⁵³)."""
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 unpivoted + Bunch-Kaufman, and ``factor/RegularizedLDL/`` — the IPM KKT
 workhorse with dynamic regularization + iterative refinement).
 
-TPU-native: recursive blocked LDLᵀ/LDLᴴ (unit-lower L, diagonal D) — the same
-midpoint recursion as Cholesky so the trailing update is one sharded MXU
+Design: recursive blocked LDLᵀ/LDLᴴ (unit-lower L, diagonal D) — the same
+midpoint recursion as Cholesky so the trailing update is one sharded
 matmul; the base case is a masked ``fori_loop``.  Pivoting is avoided the way
 the reference's IPM does: *dynamic regularization* keeps the factorization
 stable for quasi-definite KKT systems (reference ``RegularizedLDL`` +
@@ -159,7 +159,7 @@ def ldl_pivoted(A: Arr, conjugate: bool = False) -> LDLPivoted:
     Jit-safe masked formulation: one ``fori_loop`` step per column with a
     carried ``skip`` flag for the second column of a 2×2 pivot; symmetric
     swaps are applied as full index-permutation gathers (control-flow-heavy
-    pivoting is inherently hostile to the MXU — this is the correctness
+    pivoting is inherently hostile to matmul units — this is the correctness
     tier; the IPM hot path stays on the pivot-free RegularizedLDL)."""
     a0 = as_array(A)
     n = a0.shape[0]

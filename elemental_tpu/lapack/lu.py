@@ -2,9 +2,9 @@
 pivoting, panel dist, rank-update Mod, SolveAfter — dormant tier, spec'd by its
 headers and tests).
 
-TPU-native: partial pivoting uses XLA's fused ``lu`` primitive (blocked with
+Design: partial pivoting uses XLA's fused ``lu`` primitive (blocked with
 pivoting on-device); full pivoting is an explicit masked ``fori_loop`` (max
-|a_ij| reduction + row/col permutation per step — pivot search maps to VPU
+|a_ij| reduction + row/col permutation per step — pivot search maps to vector
 reductions).
 """
 

@@ -1,7 +1,7 @@
 """Permutations (reference ``src/lapack_like/perm``: Permutation /
 DistPermutation with comm metadata, pivot↔permutation conversions).
 
-TPU-native: a permutation is an index vector; applying it is a gather —
+Design: a permutation is an index vector; applying it is a gather —
 XLA turns gathers on sharded arrays into the same send/recv pattern the
 reference's ``PermutationMeta`` plans explicitly."""
 

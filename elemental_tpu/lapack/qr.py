@@ -2,13 +2,13 @@
 Householder, tall-skinny TSQR tree reduce ``TS.hpp``, BusingerGolub column
 pivoting, Cholesky-QR, Explicit, ApplyQ).
 
-TPU-native:
+Design:
   * general QR — XLA's ``geqrf`` + ``householder_product`` primitives
     (blocked compact-WY on device).
   * TSQR — ``shard_map`` binary-tree reduction of local QRs over the flat
     ('mc','mr') axis: the direct analog of the reference's tree reduce, with
     each tree level one all-gather-of-R + local QR.
-  * CholeskyQR2 — two rounds of (AᵀA → chol → trsm); the fastest MXU path
+  * CholeskyQR2 — two rounds of (AᵀA → chol → trsm); the fastest matmul path
     for well-conditioned tall-skinny operands.
   * column-pivoted QR — masked ``fori_loop`` with norm downdating
     (BusingerGolub).
@@ -109,7 +109,7 @@ def tsqr(A: Arr, grid: Grid = None, tree: bool = None) -> QR:
       on every rank (comm p·n² but ONE collective — lower latency).
     * ``tree=None`` — crossover dispatch: the butterfly needs p a power of
       two and wins when the gathered stack p·n² is large; otherwise the
-      one-shot all-gather's single-collective latency wins on ICI.
+      one-shot all-gather's single-collective latency wins.
     """
     from jax import shard_map
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -174,7 +174,7 @@ def tsqr(A: Arr, grid: Grid = None, tree: bool = None) -> QR:
 @with_precision
 def cholesky_qr(A: Arr, iterations: int = 2) -> QR:
     """CholeskyQR2 (reference ``QR/Cholesky.hpp``): Q·R via Gram-matrix
-    Cholesky, iterated twice for stability.  All flops are MXU matmuls."""
+    Cholesky, iterated twice for stability.  All flops are matmuls."""
     a = as_array(A)
     q = a
     r_total = jnp.eye(a.shape[1], dtype=a.dtype)
@@ -192,7 +192,7 @@ def qr_pivoted(A: Arr) -> QRPivoted:
     """Column-pivoted (BusingerGolub) QR via a masked Householder loop
     (reference ``QR/BusingerGolub.hpp``).  The loop's own factorization is
     the output: R comes from the reduced matrix, Q from applying the stored
-    reflectors to I — no second factorization (VERDICT r3 weak #7)."""
+    reflectors to I — no second factorization."""
     a = as_array(A)
     m, n = a.shape
     steps = min(m, n)

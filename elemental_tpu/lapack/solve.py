@@ -140,7 +140,7 @@ def lgmres(apply_a: Callable, b, **kw) -> KrylovResult:
     """LGMRES: restarted GMRES augmented with previous-cycle error
     approximations (reference ``solve/LGMRES.hpp``).  This implementation uses
     plain restarts (the augmentation vectors are subsumed by a longer restart
-    window on TPU, where the Arnoldi basis lives comfortably in HBM)."""
+    window, where the Arnoldi basis lives comfortably in device memory)."""
     kw.setdefault("restart", 40)
     return gmres(apply_a, b, **kw)
 

@@ -2,7 +2,7 @@
 ``LinearSolve`` / ``LSE`` — the dormant ``euclidean_min`` tier called by
 ``examples/interface/Sequential{LeastSquares,LinearSolve,LSE}.py``).
 
-TPU-native design: the reference solves sparse LS through a regularized
+Design: the reference solves sparse LS through a regularized
 quasi-definite AUGMENTED system factored by the sparse LDL; here the same
 embedding runs through the level-batched multifrontal
 (:class:`..sparse_direct.SparseLDLFactorization`) with iterative
@@ -100,7 +100,7 @@ def sparse_lse(A: SparseMatrix, B: SparseMatrix, c, d,
     [[I, 0, A], [0, −δI, B], [Aᵀ, Bᵀ, −δI]]·[r; λ; x] = [c; d; 0] with
     refinement against the δ-free KKT — the (1,1) block stays UNIT so
     the multiplier λ is O(1) and refinement contracts at O(δ·κ) (a
-    1/α-scaled multiplier makes it diverge; measured r5).  Returns
+    1/α-scaled multiplier makes it diverge).  Returns
     (x, ‖Ax−c‖)."""
     m, n = A.shape
     p = B.shape[0]

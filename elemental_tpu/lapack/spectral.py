@@ -2,9 +2,8 @@
 HermitianEig via tridiag+PMRRR (§3.4 call stack), HermitianTridiagEig, SVD,
 SecularEVD, Schur, Pseudospectra, Polar, SkewHermitianEig, TriangEig).
 
-TPU-native design:
-  * ``hermitian_eig`` — XLA's fused ``eigh`` (a blocked QDWH-eig/QR hybrid that
-    runs entirely on the MXU) replaces the reference's
+Design:
+  * ``hermitian_eig`` — XLA's fused ``eigh`` (cuSOLVER's syevd on the GPU) replaces the reference's
     tridiag → PMRRR → back-transform pipeline; a tridiag path is also provided
     (``hermitian_eig(..., alg='tridiag')``) mirroring §3.4 for parity and for
     the subset/range queries PMRRR serves.
@@ -147,8 +146,8 @@ class Schur(NamedTuple):
 
 def schur(A: Arr) -> Schur:
     """Complex Schur decomposition A = Q T Qᴴ (reference ``Schur`` — dormant
-    AED tier).  Host LAPACK: nonsymmetric eigenproblems have no TPU primitive;
-    this runs on CPU and is not jittable."""
+    AED tier).  Host LAPACK: nonsymmetric eigenproblems have no device primitive
+    here; this runs on the host CPU and is not jittable."""
     import scipy.linalg as sla
     a = np.asarray(as_array(A)).astype(np.complex128)
     t, q = sla.schur(a, output="complex")
@@ -225,7 +224,7 @@ def pseudospectra(A: Arr, shifts: jnp.ndarray, iters: int = 30) -> jnp.ndarray:
 def polar(A: Arr, iters: int = 30):
     """Polar decomposition A = Q·P via QDWH-style Newton iteration (reference
     ``Polar`` — QDWH).  Scaled Newton: Q ← (Q + Q⁻ᴴ)/2 with determinant
-    scaling; all iterations are MXU matmuls + solves."""
+    scaling; all iterations are matmuls + solves."""
     a = as_array(A)
     x = a / jnp.linalg.norm(a)
 

@@ -2,10 +2,10 @@
 ``pmrrr`` §2.6 item 1: MPI+pthreads MRRR; wrapped by
 ``src/core/imports/pmrrr.cpp``).
 
-TPU-native re-expression of MRRR's division of labor:
+XLA re-expression of MRRR's division of labor:
   * eigenvalue isolation — Sturm-sequence bisection, **vmapped over all n
     eigenvalues at once** (each bisection step is one fused scan over (d,e),
-    batched on the VPU — the parallel-over-eigenvalues structure PMRRR gets
+    batched elementwise — the parallel-over-eigenvalues structure PMRRR gets
     from MPI ranks);
   * eigenvectors — shifted tridiagonal inverse iteration, each solve a
     Thomas-algorithm ``lax.scan`` (O(n)), vmapped over eigenpairs, with one

@@ -1,7 +1,7 @@
 """3D (2.5D) GEMM (reference ``experimental/g3d/G3DGemm.cpp``: replicate over
 a depth dimension of independent grids, split the contraction, all-reduce).
 
-TPU-native: a 3D mesh ('d','mc','mr'); A and B are depth-sharded over k, each
+Design: a 3D mesh ('d','mc','mr'); A and B are depth-sharded over k, each
 depth slice runs a 2D SUMMA contraction on its (mc,mr) sub-mesh, and one
 ``psum`` over 'd' combines — trading k/d memory per device for a single
 depth-axis reduction instead of per-panel communication."""

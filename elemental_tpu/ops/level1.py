@@ -2,8 +2,8 @@
 headers; ``src/blas_like/level1``).
 
 Entrywise / vector ops over local (``jnp.ndarray``) or distributed
-(:class:`DistMatrix`) operands.  All lower to XLA elementwise fusions on the
-VPU; reductions over distributed operands become mesh collectives inserted by
+(:class:`DistMatrix`) operands.  All lower to XLA elementwise fusions;
+reductions over distributed operands become mesh collectives inserted by
 GSPMD.  Distribution of the result follows the reference's rules (e.g. a dot
 of two [MC,MR] matrices is replicated, a diagonal is an MD→flat vector).
 """
@@ -47,7 +47,7 @@ def entrywise_map(A: Arr, fn) -> Arr:
 
 def index_dependent_map(A: Arr, fn) -> Arr:
     """A[i,j] = fn(i, j, A[i,j]) (reference ``IndexDependentMap``), expressed
-    with broadcasted iotas so it stays a fused VPU kernel."""
+    with broadcasted iotas so it stays one fused elementwise kernel."""
     a = as_array(A)
     m, n = a.shape
     i = jax.lax.broadcasted_iota(jnp.int32, (m, n), 0)

@@ -2,15 +2,15 @@
 Symm/Hemm, Herk/Syrk/Her2k/Syr2k, Trrk/Trr2k, Trmm, Trsm, MultiShiftTrsm,
 TwoSidedTrsm/Trmm, QuasiTrsm.
 
-TPU-native shapes:
+Shapes:
   * Gemm — GSPMD einsum or explicit SUMMA (:mod:`.summa`) selected by a size
     heuristic like ``Gemm/NN.hpp:582-599``.
   * Triangular ops — *recursive blocked* formulations: splitting at the
-    midpoint turns almost all work into large MXU matmuls (the TPU analog of
+    midpoint turns almost all work into large matmuls (the analog of
     the reference's Large/Medium/Small dispatch, ``Trsm.cpp:184-233``); the
     O(nb²) base case uses XLA's ``triangular_solve`` primitive.
   * rank-k updates (Herk/Trrk) — full gemm + triangular mask; the masked
-    entries are dead writes that XLA fuses away cheaply, and the MXU prefers
+    entries are dead writes that XLA fuses away cheaply, and the matrix units prefer
     one big matmul over two trapezoidal ones.
 """
 
@@ -30,7 +30,7 @@ Arr = Union[jnp.ndarray, DistMatrix]
 
 _MIN_RECURSIVE = 256  # below this, call the XLA primitive directly
 
-# On TPU, f32 matmuls default to fast bf16 passes (~1e-2 relative error).  A
+# f32 matmuls may otherwise run in TF32 on the GPU (~1e-3 relative error).  A
 # linear-algebra library must default to full precision; perf-critical callers
 # can lower it (set_matmul_precision / the `precision` kwarg on gemm).
 _matmul_precision = "highest"
@@ -223,7 +223,7 @@ def _trsm_base(a, b, left, lower, trans_a, conj_a, unit):
 
 def _trsm_rec(a, b, left, lower, trans_a, conj_a, unit):
     """Recursive blocked triangular solve: the midpoint split turns half the
-    flops into MXU matmuls and shards cleanly under GSPMD (TPU analog of the
+    flops into matmuls and shards cleanly under GSPMD (the analog of the
     reference's Large-variant dispatch, ``Trsm.cpp:184-233``)."""
     n = a.shape[0]
     if n <= _MIN_RECURSIVE:
@@ -385,7 +385,7 @@ def safe_multishift_trsm(side: str, uplo: str, orient: str, alpha, A: Arr,
     column's scale s_j ≤ 1 is chosen so the solution stays representable.
     Returns ``(X, scales)``.
 
-    TPU-native formulation: instead of the reference's entry-by-entry
+    Formulation: instead of the reference's entry-by-entry
     rescaling inside the substitution (data-dependent control flow), solve
     once and derive the per-column scale from the solution magnitude — the
     shifted solves themselves run batched under ``vmap``."""

@@ -1,13 +1,13 @@
 """SUMMA distributed GEMM over the ('mc','mr') mesh.
 
-TPU-native re-design of the reference's SUMMA stack
+XLA re-design of the reference's SUMMA stack
 (``src/blas_like/level3/Gemm.cpp:274-345``, ``Gemm/NN.hpp`` variants A/B/C/Dot
 + Cannon + multistream): here the variants map to
 
   * ``xla``        — ``jnp.einsum`` under sharding constraints; GSPMD inserts
                      the SUMMA communication pattern itself.
   * ``stationary_c`` — explicit ``shard_map``: all-gather A along 'mr' and B
-                     along 'mc', one big local MXU matmul.  The analog of
+                     along 'mc', one big local matmul.  The analog of
                      SUMMA-Dot: comm volume k·(m/h + n/w) per device.
   * ``stationary_a``/``stationary_b`` — keep the largest operand in place,
                      all-gather the smaller one and reduce-scatter the product
@@ -68,9 +68,8 @@ def _stationary_a_local(a_blk, b_blk, w: int):
     at a time while B is assembled k-wise with ONE single-axis all-gather
     (k, n/w).  Per-device peak: local A + h·local B + one A panel; the big
     operand's only movement is the ring transit of its own shard (volume
-    (w−1)/w·|A|/h per device), overlapped with the matmuls.  Replaces the
-    r3 double-all-gather that replicated B to (k, n) on every rank
-    (VERDICT r3 weak #5)."""
+    (w−1)/w·|A|/h per device), overlapped with the matmuls; B is never
+    replicated to (k, n) on every rank."""
     return _ring_over_a(a_blk, b_blk, w)
 
 
@@ -183,7 +182,7 @@ def choose_algorithm(m: int, n: int, k: int, grid: Grid,
     weight_a, weight_b, weight_c = m * k, k * n, m * n
     if weight_c >= weight_a and weight_c >= weight_b:
         # stationary-C gathers an (m/h, k) strip of A per device; past the
-        # VMEM/HBM comfort threshold the ring pipeline wins (one k/w panel
+        # device-memory comfort threshold the ring pipeline wins (one k/w panel
         # resident instead of k)
         if (m // max(h, 1)) * k * itemsize > pipeline_bytes:
             return "pipelined"

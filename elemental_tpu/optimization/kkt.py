@@ -1,11 +1,12 @@
-"""Fixed-pattern sparse KKT engine — the TPU-resident core of the IPM tier.
+"""Fixed-pattern sparse KKT engine — the device-resident core of the IPM
+tier.
 
 Reference pipeline (SURVEY §3.6, ``examples/interface/LPDirect.py:70-115``):
 per iteration, form the regularized quasi-definite KKT, re-factor with
 ``RegularizedLDL`` *reusing the symbolic analysis* via ``ChangeNonzeroValues``
 (``DistSparseLDLFactorization.cpp:149``), then run refined solves.
 
-TPU-native design: the KKT pattern is assembled ONCE on host (static blocks:
+Design: the KKT pattern is assembled ONCE on host (static blocks:
 A, Aᵀ, G, Gᵀ, Q, regularization diagonals; dynamic slots: the barrier
 diagonal Θ, cone scaling blocks).  Per-iteration work is pure device code
 inside one jitted program: scatter-add the dynamic values into the fixed
@@ -28,8 +29,7 @@ import jax.numpy as jnp
 
 from ..sparse.csr import SparseMatrix
 from ..sparse_direct.symbolic import SymbolicFactorization, analyze
-from ..sparse_direct.numeric import (LDLFactorization, _placement_platform,
-                                     factor as _mf_factor)
+from ..sparse_direct.numeric import LDLFactorization, factor as _mf_factor
 
 
 class KKTBuilder:
@@ -92,34 +92,12 @@ class KKTBuilder:
             from ..sparse_direct.ordering import nested_dissection
             perm = nested_dissection(pattern, cutoff=cutoff)
         symb = analyze(pattern, perm=perm, relax=relax).device()
-        ea_plans, ea_interp = _build_kkt_ea_plans(symb)
         return KKTSystem(N, pattern, symb,
                          jnp.asarray(base, jdtype),
                          [jnp.asarray(p.astype(np.int32)) for p in dyn_pos],
                          jnp.asarray(rows.astype(np.int32)),
                          jnp.asarray(cols.astype(np.int32)),
-                         jdtype, ea_plans, ea_interp)
-
-
-def _build_kkt_ea_plans(symb):
-    """Pallas extend-add plans for the per-iteration KKT refactorization
-    (same policy as the sparse-direct facade: TPU auto, ``ELEMENTAL_EA``
-    override)."""
-    import os
-    mode = os.environ.get("ELEMENTAL_EA", "auto")
-    if mode == "off":
-        return None, False
-    plat = _placement_platform()
-    if mode != "on" and plat != "tpu":
-        return None, False
-    from ..core.policy import x64_enabled
-    if plat == "tpu" and x64_enabled():
-        return None, False              # f64 KKT — Mosaic has no 64-bit
-    from ..sparse_direct.ea_plan import build_ea_plans, plans_device
-    plans = build_ea_plans(symb)
-    if plans is None:
-        return None, False
-    return plans_device(plans), plat != "tpu"
+                         jdtype)
 
 
 @dataclasses.dataclass
@@ -135,8 +113,6 @@ class KKTSystem:
     csr_rows: jnp.ndarray            # (nnz,) int32 — matvec row ids
     csr_cols: jnp.ndarray            # (nnz,) int32
     jdtype: Optional[object] = None
-    ea_plans: Optional[object] = None    # Pallas extend-add plans (or None)
-    ea_interpret: bool = False
 
     @property
     def nnz(self) -> int:
@@ -172,18 +148,16 @@ class KKTSystem:
 
         ``pivot_floor``: optional (N,) signed floors (original order) for
         the multifrontal kernel's dynamic pivot regularization (reference
-        ``RegularizedLDL``) — essential for the quasi-definite KKT in
-        fp32, where unclamped pivots cross zero and destroy the factor
-        (measured r4: factored-solve residual 0.6 at a 4-decade Θ spread).
-        Floors live in the EQUILIBRATED scale (the Ruiz-scaled diagonal is
-        O(1)), so constants ~√eps are appropriate."""
+        ``RegularizedLDL``), given in the scale of ``vals``; they are
+        mapped into the equilibrated scale (× D²) here."""
         if equilibrate:
             v, scale = self.equilibrate(vals)
         else:
             v, scale = vals, jnp.ones(self.N, vals.dtype)
+        if pivot_floor is not None:
+            pivot_floor = pivot_floor * scale * scale
         num = _mf_factor(self.symb, v, dtype=v.dtype, spd=spd,
-                         pivot_floor=pivot_floor, ea_plans=self.ea_plans,
-                         ea_interpret=self.ea_interpret)
+                         pivot_floor=pivot_floor)
         return KKTFactor(self, vals, num.pool, num.d, scale)
 
     def matvec(self, vals: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
@@ -196,10 +170,10 @@ class KKTSystem:
 def _hessenberg_lstsq(H: jnp.ndarray, b: jnp.ndarray, k: int) -> jnp.ndarray:
     """min‖H·y − b‖ for the (k+1)×k GMRES Hessenberg via k Givens
     rotations + back-substitution — elementary ops only, so it is
-    jit-safe in ANY dtype on TPU (``jnp.linalg.lstsq`` SIGABRTs the XLA
-    TPU compiler inside TransposeFolding, and normal equations square the
-    conditioning, which an f32 subsolve then cannot survive — both
-    measured r4).  k is small (≤ ~8), the rotations are unrolled."""
+    jit-safe in any dtype and needs no LAPACK-style solver inside the
+    graph (normal equations would square the conditioning, which an f32
+    subsolve then cannot survive).  k is small (≤ ~16), the rotations are
+    unrolled."""
     R = H
     for j in range(k):
         a1, a2 = R[j, j], R[j + 1, j]
@@ -241,20 +215,16 @@ class KKTFactor:
         """Per-level panel inverses for the equilibrated factor — build
         once per factor, thread through every ``solve_refined`` against
         it (the at-scale IPM loop hoists this out of the per-sweep
-        program; see ``lp._ipm_sparse``'s jfactor)."""
+        program; see ``lp_direct``'s jfactor)."""
         return LDLFactorization(self.sys.symb, self.pool, self.d,
                                 False).solve_context()
 
-    # Unrolled straight-line Arnoldi only below this problem size: each
-    # multifrontal-solve instance in the graph costs XLA ~1-2 min of TPU
-    # compile at N≈7k (measured r4: factor 22 s, +1 solve 81 s, +2 solves
-    # 219 s), so k unrolled solves at scale never finish compiling — the
-    # r3 "lp_direct_large --n1 64 does not complete" failure.
-    UNROLL_MAX_N = 4096
+    # KKT size above which solve_refined uses panel inverses by default
+    CONTEXT_MIN_N = 4096
 
     def solve_refined(self, rhs: jnp.ndarray,
                       reg_diag: Optional[jnp.ndarray] = None,
-                      iters: int = 2, unroll: Optional[bool] = None,
+                      iters: int = 2, unroll: bool = False,
                       ctx=None) -> jnp.ndarray:
         """Solve K₀·x = rhs where K₀ = K − diag(reg_diag), by ``iters``
         steps of FGMRES preconditioned with the LDL factor of the
@@ -269,31 +239,27 @@ class KKTFactor:
 
         The small least-squares min‖H·y − β·e₁‖ is solved by
         :func:`_hessenberg_lstsq` (k unrolled Givens rotations +
-        back-substitution): ``jnp.linalg.lstsq`` aborts the XLA TPU
-        compiler inside TransposeFolding when embedded in this graph
-        (SIGABRT ``Check failed: buffer != nullptr``, measured r4 at
-        N≈7k), and normal equations square the conditioning, which an f32
-        subsolve then cannot survive (also measured r4)."""
+        back-substitution).  ``unroll``: straight-line Arnoldi steps
+        instead of a ``fori_loop`` (k tree-solve instances in the graph,
+        so only for small systems — each instance adds compile time).
+
+        ``ctx``: per-level panel inverses (:meth:`solve_context`); the k
+        preconditioner applications then cost one batched matmul per
+        level each instead of a batched triangular solve.  Above
+        ``CONTEXT_MIN_N`` the context is built here when the caller gives
+        none (callers that solve many times per factor build it once and
+        pass it).  Below it the solve is substitution, whose eps·‖L‖
+        residual beats the inverse's eps·κ(panel) on the ill-conditioned
+        spread-θ panels (the f64 RNNLS driver loses its x ≥ 0 guarantee
+        with the inverse preconditioner at N=245)."""
         def K0(x):
             kx = self.sys.matvec(self.vals, x)
             if reg_diag is not None:
                 kx = kx - reg_diag * x
             return kx
 
-        # At scale, precompute the per-level panel inverses ONCE per
-        # factor: the k FGMRES preconditioner applications then cost one
-        # batched matmul per level each instead of InvertDiagBlocks +
-        # serialized lax.map chunks (measured r5 at N=150,528: solve
-        # 551.9 → 172.0 ms, FGMRES-16 sweep 8.75 → 3.03 s at the same
-        # sweep residual 1.7e-7 — EXPERIMENTS §E5.7).  Below the
-        # chunking threshold the tri-solve path has no lax.map problem
-        # AND substitution's eps·‖L‖ residual beats the inverse's
-        # eps·κ(panel) on the ill-conditioned spread-θ panels (measured:
-        # the f64 RNNLS driver loses its x ≥ 0 guarantee with the
-        # inverse preconditioner at N=245), so small systems keep the
-        # exact path.
         N = rhs.shape[0]
-        if ctx is None and N > self.UNROLL_MAX_N:
+        if ctx is None and N > self.CONTEXT_MIN_N:
             ctx = self.solve_context()
 
         beta = jnp.linalg.norm(rhs)
@@ -316,12 +282,6 @@ class KKTFactor:
             Z = Z.at[j].set(z)
             return V, Z, H
 
-        if unroll is None:
-            # TPU: straight-line gathers beat the lax-loop gather emitter,
-            # but only while the graph still compiles in finite time; past
-            # UNROLL_MAX_N the single-solve-instance loop body wins.
-            unroll = (_placement_platform() != "cpu"
-                      and N <= self.UNROLL_MAX_N)
         if unroll:
             carry = (V, Z, H)
             for j in range(k):
@@ -341,10 +301,9 @@ class KKTFactor:
 
 # Pytrees: KKT containers pass through jit as ARGUMENTS so the plan index
 # arrays (csr_rows/cols, dyn_pos, the symbolic level plans) never become
-# jaxpr constants — constants push XLA's TPU gather/scatter onto a ~0.06
-# Gnnz/s scalar path (see core/statics.py).
+# jaxpr constants (see core/statics.py).
 from ..core.statics import register_plan_pytree  # noqa: E402
 
 register_plan_pytree(KKTSystem, ("symb", "base_vals", "dyn_pos",
-                                 "csr_rows", "csr_cols", "ea_plans"))
+                                 "csr_rows", "csr_cols"))
 register_plan_pytree(KKTFactor, ("sys", "vals", "pool", "d", "scale"))

@@ -6,7 +6,7 @@ Forms (reference naming):
   * direct:  min cᵀx  s.t.  A·x = b,  x ≥ 0
   * affine:  min cᵀx  s.t.  A·x = b,  G·x + s = h,  s ≥ 0
 
-TPU-resident hot loop (SURVEY §3.6): the regularized quasi-definite
+Device-resident hot loop (SURVEY §3.6): the regularized quasi-definite
 augmented KKT is assembled ONCE as a fixed sparse pattern
 (:class:`..optimization.kkt.KKTBuilder`); each iteration is one jitted
 device program — scatter the barrier diagonal Θ = z/x into the value
@@ -20,7 +20,8 @@ anywhere in the loop.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+import time
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
@@ -34,32 +35,30 @@ from .kkt import KKTBuilder, KKTSystem
 
 def _resolve_numerics(ctrl):
     """Working-dtype-aware (reg, tol): the f64-era defaults (γ=δ=1e-9,
-    tol=1e-8) are BELOW f32 resolution — on a non-x64 TPU they produce
-    pivot blowups (NaN at the first iteration, measured r4) and an
+    tol=1e-8) are BELOW f32 resolution — without x64 they produce
+    pivot blowups (NaN at the first iteration) and an
     unreachable stopping test.  Under f32 the regularization floor is
     ~√eps·0.1 and the tolerance floor ~50·eps (core/policy philosophy);
     under x64 the classical values pass through unchanged.
 
     When the caller's tolerance is clamped, a warning is emitted and the
     effective value is reported back via ``LPResult.tol_effective`` —
-    ``converged`` always refers to the EFFECTIVE tolerance (ADVICE r4)."""
+    ``converged`` always refers to the EFFECTIVE tolerance."""
     from ..core.policy import default_real_dtype
     eps = float(jnp.finfo(default_real_dtype()).eps)
     reg = ctrl.reg
     if reg is None:
         # f32: γ must ABSORB the pivot-free quasi-definite element growth.
-        # Measured (r5, ConcatFD2D n1=64, Ruiz-equilibrated, θ=1):
-        # growth(max|L|) ≈ 2.7/γ and the factored-solve residual ≈
-        # eps·growth², so γ=0.1·√eps (the r4 default) leaves an O(1)-error
-        # factor (resid 3.4 — the at-scale stall), γ=1e-3 gives 0.42, and
-        # γ=1e-2 gives 2.8e-2 with FGMRES-8 reaching 4.1e-7.  FGMRES
-        # solves against the UNregularized KKT, so a large γ costs only
-        # preconditioner sharpness — √eps·30 ≈ 1e-2 is the measured knee.
+        # On ConcatFD2D (Ruiz-equilibrated, θ=1) the element growth is
+        # max|L| ≈ 2.7/γ and the factored-solve residual ≈ eps·growth², so
+        # γ=0.1·√eps leaves an O(1)-error factor while γ ≈ 1e-2 leaves a
+        # preconditioner FGMRES converges with.  FGMRES solves against the
+        # UNregularized KKT, so a large γ costs only preconditioner
+        # sharpness — √eps·30 ≈ 1e-2 is the knee.
         reg = 1e-9 if eps < 1e-10 else 30.0 * float(np.sqrt(eps))
     # f32 tolerance floor: with the γ above, FGMRES directions reach
     # ~1e-6 relative and the f32 matvec residual floor is ~eps·‖A‖‖x‖ ≈
-    # 1e-7·scale — 50·eps (≈6e-6) is attainable (measured r5 at n1=64;
-    # r4's 2000·eps floor belonged to the garbage-factor regime)
+    # 1e-7·scale — 50·eps (≈6e-6) is attainable
     tol = max(ctrl.tol, 50.0 * eps)
     if tol > ctrl.tol:
         import warnings
@@ -81,15 +80,6 @@ def _resolve_refine(ctrl) -> int:
     return 8 if eps < 1e-10 else 16
 
 
-def _resolve_unroll(ctrl) -> 'Optional[bool]':
-    """Resolve the refinement-loop unroll flag OUTSIDE tracing.  None is
-    passed through: :meth:`KKTFactor.solve_refined` then decides from the
-    platform AND the problem size (unrolled straight-line gathers beat the
-    TPU lax-loop gather emitter, but each unrolled multifrontal solve costs
-    XLA minutes of compile at scale — kkt.py UNROLL_MAX_N)."""
-    return ctrl.refine_unroll
-
-
 class Approach:
     MEHROTRA = "mehrotra"
     IPF = "ipf"
@@ -98,8 +88,8 @@ class Approach:
 # Above this KKT size the fused per-step jit is replaced by a
 # python-orchestrated step with ONE compiled factor + ONE compiled
 # refined-solve (see the ``large`` branch in :func:`lp_direct`): each
-# multifrontal-solve instance embedded in a jit costs XLA minutes of TPU
-# compile time at scale — and only the python path can RESTART the
+# multifrontal-solve instance embedded in a jit adds its whole level loop to
+# the compile at scale — and only the python path can RESTART the
 # refined solve adaptively (essential in f32; see ``ksolve_py``).
 LARGE_FUSED_N = 4096
 
@@ -117,9 +107,9 @@ class LPCtrl:
     refine_iters: 'Optional[int]' = None  # FGMRES steps vs the exact KKT
                                 # None: 8 under x64, 16 under f32 (the f32
                                 # factor is a γ≈1e-2-regularized
-                                # preconditioner — measured r5: 16 steps
-                                # converge n1=64 where 8 stall at 7e-5)
-    refine_unroll: 'Optional[bool]' = None  # None: platform+size policy
+                                # preconditioner: 16 steps converge
+                                # n1=64 where 8 stall at 7e-5)
+    refine_unroll: bool = False  # straight-line FGMRES (small systems)
     verbose: bool = False
     ordering: Optional[np.ndarray] = None  # precomputed KKT fill ordering
 
@@ -135,6 +125,7 @@ class LPResult:
     s: Optional[np.ndarray] = None  # affine-form slack
     tol_effective: Optional[float] = None  # the tolerance actually tested
     metric: Optional[float] = None  # achieved max(rb/‖b‖, rc/‖c‖, gap)
+    iter_seconds: Optional[List[float]] = None  # wall time of each iteration
 
 
 def sparse_ruiz(A: SparseMatrix, iters: int = 10
@@ -213,23 +204,23 @@ def lp_direct(A: SparseMatrix, b: np.ndarray, c: np.ndarray,
     tau = ctrl.tau
     nref = _resolve_refine(ctrl)
 
-    # Dynamic pivot-floor regularization (reference RegularizedLDL) is
-    # available via kkt.prepare(pivot_floor=...) but OFF here: measured r4,
-    # boosting the ~3 % of pivots that sit exactly at the static ±γ made
-    # the theta=1 factored solve 1000× WORSE (those pivots are exact — the
-    # static regularization IS their value), while the stalls it aimed at
-    # were actually the broken small least-squares inside FGMRES (fixed by
-    # the Givens path in kkt._hessenberg_lstsq).
-    pivot_floor = None
+    # Dynamic pivot regularization (reference RegularizedLDL) at HALF the
+    # static regularization.  This KKT is quasi-definite, so in exact
+    # arithmetic, under any symmetric ordering, every pivot is ≥ γ on a
+    # primal row and ≤ −δ on a dual row (a pivot is the reciprocal of a
+    # diagonal entry of a quasi-definite submatrix's inverse).  A
+    # computed pivot of magnitude below half that bound is therefore
+    # rounding damage, and only such pivots are boosted; pivots at ±γ
+    # stay untouched (boosting those makes the factored solve worse).
+    pivot_floor = 0.5 * reg_diag
 
     # device containers (kkt, Ad, Atd) and data vectors are passed to the
     # jitted start/step as ARGUMENTS — closing over them would embed the
-    # index arrays as jaxpr constants, the TPU scalar-gather cliff
-    # (core/statics.py)
+    # index arrays as jaxpr constants (core/statics.py)
     def kfactor(kkt, theta):
         return kkt.prepare(kkt.assemble([theta]), pivot_floor=pivot_floor)
 
-    unroll = _resolve_unroll(ctrl)
+    unroll = ctrl.refine_unroll
 
     def ksolve(fact, reg_diag, f, g):
         sol = fact.solve_refined(jnp.concatenate([f, g]), reg_diag,
@@ -257,12 +248,10 @@ def lp_direct(A: SparseMatrix, b: np.ndarray, c: np.ndarray,
     sigma_ipf = ctrl.sigma_ipf
 
     # At scale, one fused step-jit would embed 2 multifrontal-solve
-    # instances (plus 2 in start) and each instance costs XLA minutes of
-    # TPU compile (measured r4: factor 28 s, +1 solve 63 s at N≈7k).  The
-    # large path orchestrates the SAME math from python with exactly one
-    # compiled factor and one compiled refined-solve, reused for every
-    # solve of every iteration; the in-loop FGMRES body runs at
-    # straight-line solve speed (measured r4: 0.25 s/solve either way).
+    # instances (plus 2 in start), each adding its level loop to the
+    # compile.  The large path orchestrates the SAME math from python with
+    # exactly one compiled factor and one compiled refined-solve, reused
+    # for every solve of every iteration.
     large = kkt.N > LARGE_FUSED_N
 
     @jax.jit
@@ -327,7 +316,7 @@ def lp_direct(A: SparseMatrix, b: np.ndarray, c: np.ndarray,
             fact = kkt.prepare(kkt.assemble([theta]),
                                pivot_floor=pivot_floor)
             # panel inverses once per FACTOR, not once per FGMRES sweep
-            # (~0.3 s each at N=150K × up to 12 sweeps/iteration)
+            # (up to 12 sweeps/iteration)
             return fact, fact.solve_context()
 
         @jax.jit
@@ -342,7 +331,7 @@ def lp_direct(A: SparseMatrix, b: np.ndarray, c: np.ndarray,
 
         def ksolve_py(fact_ctx, f, g):
             """Restarted FGMRES(nref): a single sweep can plateau at
-            ~5e-2 relative early in the IPM (measured r5 at n=10⁵: the
+            ~5e-2 relative early in the f32 IPM (at n=10⁵ the
             resulting O(‖rhs‖·5e-2) noise in dx clips every
             fraction-to-boundary step to ~1% — a permanent stall);
             restarting on the true residual squares the contraction per
@@ -356,8 +345,8 @@ def lp_direct(A: SparseMatrix, b: np.ndarray, c: np.ndarray,
                 # 1e-6: near convergence the rhs (rmu/x − rc) carries
                 # huge entries while the binding components of x are
                 # ~μ-small — direction error 1e-4·‖rhs‖ swamps them and
-                # the fraction-to-boundary collapses (measured r5: the
-                # gap plateaus at exactly the restart target's level)
+                # the fraction-to-boundary collapses (the gap plateaus at
+                # exactly the restart target's level)
                 if float(rn) <= 1e-6 * rn0 or not np.isfinite(float(rn)):
                     break
                 sol = sol + jrefined(fact, reg_diag, r, ctx)
@@ -374,11 +363,10 @@ def lp_direct(A: SparseMatrix, b: np.ndarray, c: np.ndarray,
             z = z_h + 0.5 * xs / jnp.maximum(jnp.sum(x_h), 1e-10)
             return jnp.maximum(x, 1e-8), y, jnp.maximum(z, 1e-8)
 
-        # Compensated residual/gap evaluation (the r4-verdict DD
-        # prescription, reference QD-tier role): plain f32 rb/rc carry
-        # eps·‖A‖‖x‖-level EVALUATION noise that the direction solves
-        # then chase (measured r5 at n=10⁵: with accurate directions the
-        # gap still floored at ~3e-5).  Per-row TwoProd/TwoSum chains
+        # Compensated residual/gap evaluation (reference QD-tier role):
+        # plain f32 rb/rc carry eps·‖A‖‖x‖-level EVALUATION noise that the
+        # direction solves then chase (at n=10⁵ in f32, with accurate
+        # directions the gap still floors at ~3e-5).  Per-row TwoProd/TwoSum chains
         # over the padded ELL rows evaluate b−Ax and c−Aᵀy−z to ~eps²;
         # rounding the RESULT to f32 is then accurate relative to its
         # own (tiny) value.  The gap uses extended.dd_dot for the same
@@ -492,7 +480,9 @@ def lp_direct(A: SparseMatrix, b: np.ndarray, c: np.ndarray,
     it = 0
     converged = False
     best_metric, best_xyz = np.inf, None
+    iter_seconds = []
     for it in range(1, ctrl.max_iters + 1):
+        t_it = time.perf_counter()
         xp, yp, zp = x, y, z
         if large:
             x, y, z, rbn, rcn, gap, ok = step_py(x, y, z)
@@ -500,6 +490,7 @@ def lp_direct(A: SparseMatrix, b: np.ndarray, c: np.ndarray,
             x, y, z, rbn, rcn, gap, ok = step(x, y, z, kkt, reg_diag,
                                               Ad, Atd, bj, cj, nb)
         rbn, rcn, gap = float(rbn), float(rcn), float(gap)
+        iter_seconds.append(time.perf_counter() - t_it)
         metric = max(rbn / bnorm, rcn / cnorm, gap)
         if np.isfinite(metric) and metric < best_metric:
             # residuals belong to the PRE-step iterate — track the best
@@ -536,7 +527,8 @@ def lp_direct(A: SparseMatrix, b: np.ndarray, c: np.ndarray,
     x, y, z = np.asarray(x), np.asarray(y), np.asarray(z)
     obj = float(c @ x)  # ĉᵀx̂ = cᵀx: the objective is scaling-invariant
     return LPResult(x / s, y / r, z * s, obj, it, converged,
-                    tol_effective=tol, metric=achieved)
+                    tol_effective=tol, metric=achieved,
+                    iter_seconds=iter_seconds)
 
 
 def _lp_metric(Ad, Atd, bj, cj, x, y, z, bnorm, cnorm) -> float:
@@ -593,7 +585,7 @@ def lp_affine(A: SparseMatrix, b: np.ndarray, G: SparseMatrix,
     bj, hj, cj = jnp.asarray(b), jnp.asarray(h), jnp.asarray(c)
     tau, tol = ctrl.tau, _tol_eff
     nref = _resolve_refine(ctrl)
-    unroll = _resolve_unroll(ctrl)
+    unroll = ctrl.refine_unroll
     mehrotra = ctrl.approach == Approach.MEHROTRA
     sigma_ipf = ctrl.sigma_ipf
 

@@ -56,8 +56,7 @@ def qp_direct(Q, A, b: np.ndarray, c: np.ndarray,
     bj, cj = jnp.asarray(b), jnp.asarray(c)
     tau, tol = ctrl.tau, _tol_eff
     nref = _resolve_refine(ctrl)
-    from .lp import _resolve_unroll
-    unroll = _resolve_unroll(ctrl)
+    unroll = ctrl.refine_unroll
 
     @jax.jit
     def step(x, y, z, kkt, reg_diag, Qd, Ad, Atd, bj, cj):
@@ -162,7 +161,7 @@ def qp_affine(Q, A, b: np.ndarray, G, h: np.ndarray, c: np.ndarray,
     m, n = A.shape
     k = G.shape[0]
     N = n + m + k
-    from .lp import _resolve_numerics, _resolve_refine, _resolve_unroll
+    from .lp import _resolve_numerics, _resolve_refine
     gamma, tol = _resolve_numerics(ctrl)
     delta = gamma
 
@@ -191,7 +190,7 @@ def qp_affine(Q, A, b: np.ndarray, G, h: np.ndarray, c: np.ndarray,
     bj, hj, cj = jnp.asarray(b), jnp.asarray(h), jnp.asarray(c)
     tau = ctrl.tau
     nref = _resolve_refine(ctrl)
-    unroll = _resolve_unroll(ctrl)
+    unroll = ctrl.refine_unroll
 
     @jax.jit
     def step(x, y, s, z, kkt, reg_diag, Qd, Ad, Atd, Gd, Gtd, bj, hj, cj):

@@ -13,9 +13,9 @@ is the quadratic representation of the NT point w (Q_w z = s); the
 per-cone Q_w blocks are the dynamic slot — cones are grouped by order and
 the block values computed with one vmapped einsum per group, so each
 iteration is a single jitted device program through the multifrontal LDL
-(symbolic analysis reused across iterations).  The r1–r4 one-sided
-dual-HKM linearization with fixed σ measured-stalled on genuine SOC
-instances (nothing recentered the primal slack; see ``step``)."""
+(symbolic analysis reused across iterations).  A one-sided dual-HKM
+linearization with fixed σ stalls on genuine SOC instances (nothing
+recenters the primal slack; see ``step``)."""
 
 from __future__ import annotations
 
@@ -342,10 +342,10 @@ class ConeOps:
         b = s₀d₀ − s̄ᵀd̄, c = det(s) > 0 the quadratic aα² + 2bα + c has
         its smallest positive root α* = c/(−b + √(b²−ac)), existing iff
         a < 0 or (b < 0 and b² ≥ ac); otherwise the ray stays in the
-        cone.  (The r4 bisection returned EXACTLY 1.0 for in-cone full
-        steps — an iterate could land on the boundary, after which every
-        subsequent bisection returned 0: a permanent stall, measured r5
-        on the RLS driver.  τ now always margins the boundary.)"""
+        cone.  (A bisection that returns EXACTLY 1.0 for in-cone full
+        steps lets an iterate land on the boundary, after which every
+        subsequent bisection returns 0: a permanent stall on the RLS
+        driver.  τ always margins the boundary.)"""
         alpha = jnp.full((), np.inf, s.dtype)
         for _, idx in self.groups:
             sb, db = s[idx], ds[idx]
@@ -377,8 +377,8 @@ def _coneops_unflatten(aux, leaves):
     return new
 
 
-# pytree: the cone index groups ride through jit as ARGUMENTS (constants
-# hit the TPU scalar gather path; see core/statics.py)
+# pytree: the cone index groups ride through jit as ARGUMENTS (see
+# core/statics.py)
 jax.tree_util.register_pytree_node(ConeOps, _coneops_flatten,
                                    _coneops_unflatten)
 
@@ -438,8 +438,7 @@ def socp_affine(A, b: np.ndarray, G, h: np.ndarray, c: np.ndarray,
     bj, hj, cj = jnp.asarray(b), jnp.asarray(h), jnp.asarray(c)
     tau, tol = ctrl.tau, _tol_eff
     nref = _resolve_refine(ctrl)
-    from .lp import _resolve_unroll
-    unroll = _resolve_unroll(ctrl)
+    unroll = ctrl.refine_unroll
 
     ident = jnp.asarray(soc_identity(cones))
 
@@ -448,11 +447,10 @@ def socp_affine(A, b: np.ndarray, G, h: np.ndarray, c: np.ndarray,
         """Nesterov–Todd-scaled Mehrotra predictor-corrector (the
         reference's Mehrotra SOCP, SURVEY §3.6; NT per Alizadeh–Goldfarb).
 
-        The r1-r4 dual-HKM linearization (block −σμ∇²F(z), fixed σ)
-        measured-STALLED on genuine SOC instances: nothing recenters the
-        primal slack, s hits the cone boundary and the
-        fraction-to-boundary collapses to 0 permanently (r5, RLS driver,
-        x64).  NT scaling is symmetric — λ = W z = W⁻ᵀs — so both sides
+        A dual-HKM linearization (block −σμ∇²F(z), fixed σ) STALLS on
+        genuine SOC instances: nothing recenters the primal slack, s hits
+        the cone boundary and the fraction-to-boundary collapses to 0
+        permanently (RLS driver, x64).  NT scaling is symmetric — λ = W z = W⁻ᵀs — so both sides
         stay centered; the KKT (3,3) block is −Q_w (same fixed pattern),
         and the scaled complementarity gives
             ds = W(v − W dz),  v = λ⁻¹∘(target − λ∘λ − corrector)."""

@@ -1,35 +1,16 @@
-"""Automatic SpMV planning: pick the fastest TPU execution form for a CSR
-matrix (the dispatch tier of the reference's sparse ``Multiply``,
-``tests/blas_like/Multiply.cpp:19-46``, re-designed around TPU constraints).
+"""Automatic SpMV planning: pick the device form for a CSR matrix (the
+dispatch tier of the reference's sparse ``Multiply``,
+``tests/blas_like/Multiply.cpp:19-46``).
 
-Measured reality on v5 lite (r4, readback-fenced timings — the stencil
-number is re-captured every round by ``bench.py``, the rest by
-``experiments/unstructured_spmv.py``; EXPERIMENTS.md holds the full log):
+* ``stencil``: a banded matrix whose diagonals cover it with little fill
+  runs as DIA (:mod:`elemental_tpu.sparse.dia`) — one fused memory-bound
+  XLA loop that streams no index arrays.
+* ``stencil_rcm``: the same after a reverse Cuthill–McKee reordering, for
+  banded matrices whose rows arrive scrambled.
+* ``csr``: everything else — XLA gather of x, product, sorted
+  ``segment_sum`` over the rows (:class:`CSRDevice`).
 
-* ``stencil`` (halo-panel Pallas kernel): ~114-126 Gnnz/s captured on the
-  1024² 2-D Laplacian ≈ 0.86× the 146 Gnnz/s HBM speed of light at its
-  5.6 B/nnz stream.  (An earlier "~160" claim exceeded the physical bound
-  — it was a pre-readback-fence timing artifact; the bench now rejects
-  any sample above SoL.)
-* ``stencil_rcm``: the same kernel after RCM reordering for scrambled
-  banded matrices.
-* ``gather_csr`` (Pallas windowed gather + XLA ``segment_sum`` combine):
-  the gather·multiply half runs at 27.3 Gnnz/s, but the row-combine must
-  go through XLA's scatter, which is SCALAR on TPU (0.116 Gelem/s, sorted
-  or not), so the END-TO-END rate is combine-bound at ~0.15 Gnnz/s —
-  honestly SLOW.  ``plan.slow`` is True and ``plan_spmv`` warns once.
-* ``csr`` (pure XLA gather+segment_sum): ~0.06 Gnnz/s — correctness
-  fallback only; also ``slow``.
-
-There is no fast general unstructured path on this hardware generation:
-no vector scatter, intra-vreg-only gathers, and 128-lane placement
-granularity put every column-sorted→row-sorted bridge design at
-single-digit Gnnz/s — the measured refutation (including the one-hot MXU
-combine the r3 verdict proposed, 5.2 Gnnz/s isolated at bf16-level
-precision but unreachable end-to-end) is in EXPERIMENTS.md.
-
-Dispatch order (``plan_spmv``): stencil → stencil_rcm → gather_csr
-(→ csr when the Pallas tier is disabled).
+Dispatch order (``plan_spmv``): stencil → stencil_rcm → csr.
 """
 
 from __future__ import annotations
@@ -39,10 +20,11 @@ from typing import Optional
 
 import numpy as np
 
+import jax
 import jax.numpy as jnp
 
 from .csr import CSRDevice, SparseMatrix
-from .dia import to_dia
+from .dia import DIAMatrix, to_dia
 
 
 @dataclasses.dataclass
@@ -52,49 +34,25 @@ class SpMVPlan:
     ``to_plan_space``/``from_plan_space`` at the boundary (host-side
     gathers — one-off per solve, never in the hot loop)."""
 
-    kind: str   # 'stencil' | 'stencil_rcm' | 'gather_csr' | 'csr' | 'bridged'
+    kind: str   # 'stencil' | 'stencil_rcm' | 'csr'
     height: int
     width: int
     nnz: int
-    stencil: Optional[object] = None       # kernels.spmv.StencilPlan
+    dia: Optional[DIAMatrix] = None
     csr: Optional[CSRDevice] = None
-    gather: Optional[object] = None        # kernels.unstructured.GatherPlan
     perm: Optional[np.ndarray] = None      # plan index -> original index
     iperm: Optional[np.ndarray] = None
 
-    @property
-    def slow(self) -> bool:
-        """True when the dispatched tier is scalar-combine-bound on TPU
-        (callers should warn or restructure; see module docstring)."""
-        return self.kind in ("gather_csr", "csr", "bridged")
-
     def device(self, device=None, dtype=None) -> "SpMVPlan":
-        import jax
-        if self.stencil is not None:
-            return dataclasses.replace(
-                self, stencil=self.stencil.device(device, dtype))
-        if self.gather is not None:
-            g = self.gather
-            if dtype is not None:
-                if hasattr(g, "chunks"):   # ChunkedGatherPlan
-                    g = dataclasses.replace(g, chunks=tuple(
-                        dataclasses.replace(c, vals=c.vals.astype(dtype))
-                        for c in g.chunks))
-                elif hasattr(g, "rounds"):  # BridgedPlan
-                    g = dataclasses.replace(g, gather=dataclasses.replace(
-                        g.gather, vals=g.gather.vals.astype(dtype)))
-                else:
-                    g = dataclasses.replace(g, vals=g.vals.astype(dtype))
-            if device is not None:
-                g = jax.device_put(g, device)
-            return dataclasses.replace(self, gather=g)
+        if self.dia is not None:
+            return dataclasses.replace(self, dia=self.dia.device(device,
+                                                                 dtype))
         csr = self.csr
-        if device is not None or dtype is not None:
-            vals = csr.vals if dtype is None else csr.vals.astype(dtype)
-            csr = CSRDevice(csr.height, csr.width,
-                            jax.device_put(csr.rows, device),
-                            jax.device_put(csr.colind, device),
-                            jax.device_put(vals, device))
+        vals = csr.vals if dtype is None else csr.vals.astype(dtype)
+        csr = CSRDevice(csr.height, csr.width,
+                        jax.device_put(csr.rows, device),
+                        jax.device_put(csr.colind, device),
+                        jax.device_put(vals, device))
         return dataclasses.replace(self, csr=csr)
 
     # -- permutation boundary (host numpy; one-off per solve) ------------
@@ -106,47 +64,23 @@ class SpMVPlan:
 
     # -- execution (jit-safe) ---------------------------------------------
     def matvec(self, x: jnp.ndarray) -> jnp.ndarray:
-        if self.stencil is not None:
-            from ..kernels.spmv import stencil_spmv
-            return stencil_spmv(self.stencil, x)
-        if self.gather is not None:
-            return self.gather.matvec(x)
+        if self.dia is not None:
+            return self.dia.matvec(x)
         return self.csr.matvec(x)
-
-    def jitted_matvec(self):
-        """Compiled y = A·x.  The plan is CLOSED OVER: Pallas kernel
-        operands run faster as jaxpr constants (measured 160 vs 114 Gnnz/s
-        for the stencil tier on v5e); for the XLA-combine tiers the choice
-        is immaterial (both scalar-bound)."""
-        import jax
-        plan = self
-        f = jax.jit(lambda x: plan.matvec(x))
-        return f
 
     @property
     def stream_bytes(self) -> int:
-        """Approximate HBM bytes per SpMV (roofline accounting)."""
-        if self.stencil is not None:
-            s = len(self.stencil.shifts)
-            item = np.asarray(self.stencil.weights).dtype.itemsize
-            return (s + 2) * self.stencil.rows * self.stencil.cols * item
-        if self.gather is not None:
-            g = self.gather
-            if hasattr(g, "chunks"):
-                item = np.asarray(g.chunks[0].vals).dtype.itemsize
-                size = sum(c.vals.size for c in g.chunks)
-            else:
-                item = np.asarray(g.vals).dtype.itemsize
-                size = g.vals.size
-            return size * (8 + item) + 2 * self.height * item
-        item = np.asarray(self.csr.vals).dtype.itemsize
-        return self.nnz * (8 + item) + 2 * self.height * item
+        """Device-memory bytes one SpMV must move (roofline accounting)."""
+        if self.dia is not None:
+            return self.dia.stream_bytes
+        item = np.dtype(self.csr.vals.dtype).itemsize
+        return self.nnz * (8 + item) + (self.height + self.width) * item
 
 
 # pytree: plans pass through jit as ARGUMENTS (see core/statics.py)
 from ..core.statics import register_plan_pytree  # noqa: E402
 
-register_plan_pytree(SpMVPlan, ("stencil", "csr", "gather"))
+register_plan_pytree(SpMVPlan, ("dia", "csr"))
 
 
 def _permuted(A: SparseMatrix, p: np.ndarray) -> SparseMatrix:
@@ -154,71 +88,26 @@ def _permuted(A: SparseMatrix, p: np.ndarray) -> SparseMatrix:
     return SparseMatrix.from_scipy(sp[p][:, p])
 
 
-def plan_spmv(A: SparseMatrix, cols: int = 1024, try_rcm: bool = True,
-              max_stream_ratio: float = 16.0,
-              max_halo: int = 256, pallas_gather: bool = True,
-              kind: str = "auto") -> SpMVPlan:
-    """Plan y = A·x for TPU execution (see module docstring).
-
-    ``kind='bridged'`` forces the r5 gather→route→one-hot-combine tier
-    (``kernels/unstructured.plan_bridged_spmv``): ~1.7× the gather_csr
-    fallback on the d=10 uniform-random north-star (0.253 vs 0.149
-    Gnnz/s captured on v5e) at f32 accuracy, but with a heavyweight host
-    plan — opt-in, not auto (EXPERIMENTS.md §E5.6)."""
-    if kind == "bridged":
-        from ..kernels.unstructured import plan_bridged_spmv
-        return SpMVPlan("bridged", A.height, A.width, A.nnz,
-                        gather=plan_bridged_spmv(A))
-    from ..kernels.spmv import plan_stencil_spmv
-
+def plan_spmv(A: SparseMatrix, try_rcm: bool = True,
+              max_stream_ratio: float = 16.0) -> SpMVPlan:
+    """Plan y = A·x (see module docstring).  ``max_stream_ratio`` bounds
+    the DIA fill: at most that many diagonals per average row nonzero
+    count."""
     n = A.height
     max_diags = max(8, int(max_stream_ratio * A.nnz / max(n, 1)))
 
-    def try_stencil(M: SparseMatrix):
-        dia = to_dia(M, max_diags=max_diags)
-        if dia is None:
-            return None
-        return plan_stencil_spmv(dia.offsets, np.asarray(dia.diags),
-                                 M.height, cols=cols, max_halo=max_halo)
-
-    st = try_stencil(A)
-    if st is not None:
-        return SpMVPlan("stencil", A.height, A.width, A.nnz, stencil=st)
+    dia = to_dia(A, max_diags=max_diags)
+    if dia is not None:
+        return SpMVPlan("stencil", A.height, A.width, A.nnz, dia=dia)
 
     if try_rcm and A.height == A.width and n > 1:
         from ..sparse_direct.ordering import reverse_cuthill_mckee
         p = reverse_cuthill_mckee(A)
-        Ap = _permuted(A, p)
-        st = try_stencil(Ap)
-        if st is not None:
+        dia = to_dia(_permuted(A, p), max_diags=max_diags)
+        if dia is not None:
             ip = np.empty_like(p)
             ip[p] = np.arange(n)
             return SpMVPlan("stencil_rcm", A.height, A.width, A.nnz,
-                            stencil=st, perm=p, iperm=ip)
+                            dia=dia, perm=p, iperm=ip)
 
-    if pallas_gather:
-        from ..kernels.unstructured import plan_gather_spmv
-        plan = SpMVPlan("gather_csr", A.height, A.width, A.nnz,
-                        gather=plan_gather_spmv(A))
-    else:
-        plan = SpMVPlan("csr", A.height, A.width, A.nnz, csr=A.device_csr())
-    if plan.slow:
-        _warn_slow(plan.kind)
-    return plan
-
-
-def _warn_slow(kind: str) -> None:
-    """One warning per process when a known-slow tier is dispatched
-    (VERDICT r3 weak #12: nothing acted on ``plan.slow``)."""
-    import warnings
-    if kind in _warned:
-        return
-    _warned.add(kind)
-    warnings.warn(
-        f"plan_spmv dispatched the '{kind}' tier, which is combine-bound "
-        f"on TPU (see sparse/auto_plan.py docstring for measured rates); "
-        f"consider a stencil-friendly reordering or the SpMM formulation",
-        RuntimeWarning, stacklevel=3)
-
-
-_warned: set = set()
+    return SpMVPlan("csr", A.height, A.width, A.nnz, csr=A.device_csr())

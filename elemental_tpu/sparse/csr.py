@@ -4,11 +4,11 @@ SparseLDL.cpp``, ``examples/interface/BP.py:20-40`` QueueUpdate/ProcessQueues
 assembly pattern): ``SparseMatrix`` (CSR), ``Graph`` (pattern), COO builder,
 BSR blocks.
 
-TPU-native design: the *assembly* side (queues, dedup, symbolic structure)
+Design: the *assembly* side (queues, dedup, symbolic structure)
 lives on host in NumPy — it is irregular, latency-bound work that would fight
 XLA; the *numeric* side is padded-ELL / CSR-segment device arrays with static
-shapes, so SpMV/SpMM compile once per structure and run at HBM speed-of-light
-(design target BASELINE.json ≥70% SoL nnz/s).
+shapes, so SpMV/SpMM compile once per structure and stream at memory
+bandwidth.
 """
 
 from __future__ import annotations
@@ -219,7 +219,7 @@ class SparseMatrix:
 
 @dataclasses.dataclass
 class ELLMatrix:
-    """Device ELL form: static-shape, MXU/VPU-friendly SpMV."""
+    """Device ELL form: static-shape, vectorizable SpMV."""
     height: int
     width: int
     cols: jnp.ndarray   # (h, w) int32
@@ -237,17 +237,9 @@ class ELLMatrix:
 
 @dataclasses.dataclass
 class CSRDevice:
-    """Device CSR (row-id segment-sum form).
-
-    PERF WARNING (measured on v5e this round, readback-fenced): XLA's TPU
-    gather AND scatter emitters are scalar — ``x[colind]`` runs at ~0.03-
-    0.1 Gelem/s and ``segment_sum`` at ~0.1-0.15 Gelem/s regardless of
-    index sortedness, flat vs 2-D form, or argument vs constant operands.
-    This container is the *correctness* fallback; the fast unstructured
-    path is the Pallas windowed gather
-    (:mod:`elemental_tpu.kernels.unstructured`, 42 Gnnz/s gather half),
-    reached via ``plan_spmv`` — whose plans say honestly which tier they
-    dispatched to."""
+    """Device CSR (row-id segment-sum form): XLA gathers x[colind],
+    multiplies, and reduces each row with a sorted ``segment_sum`` — the
+    ``csr`` tier of ``plan_spmv`` for matrices DIA does not cover."""
     height: int
     width: int
     rows: jnp.ndarray    # (nnz,) int32, sorted (CSR order)
@@ -268,10 +260,7 @@ class CSRDevice:
 
 
 # Device containers are pytrees so they can be passed as jit ARGUMENTS
-# (convenient composition, and donation/sharding of the leaves).  Note the
-# perf warning on CSRDevice: XLA's TPU gather/scatter is slow either way;
-# argument-passing does not rescue it (r02's claim that it did was wrong —
-# the fast readings were async-dispatch artifacts).
+# (convenient composition, and donation/sharding of the leaves).
 jax.tree_util.register_dataclass(
     ELLMatrix, data_fields=("cols", "vals"),
     meta_fields=("height", "width", "dropped"))
@@ -329,8 +318,8 @@ class Graph:
 
 @dataclasses.dataclass
 class BSRMatrix:
-    """Block-CSR with fixed b×b blocks — the supernodal/MXU-friendly format
-    (BASELINE format list: CSR/COO/BSR)."""
+    """Block-CSR with fixed b×b blocks — the supernodal, matmul-friendly
+    format."""
 
     height: int
     width: int
@@ -399,7 +388,7 @@ class BSRDevice:
         xp = jnp.pad(x, (0, max(0, pad))) if pad > 0 else x
         xb = xp.reshape(-1, b)                       # (nbc, b)
         gathered = xb[self.cols]                     # (nbr, wmax, b)
-        # block matvec on the MXU: (nbr, wmax, b, b) × (nbr, wmax, b)
+        # batched block matvec: (nbr, wmax, b, b) × (nbr, wmax, b)
         y = jnp.einsum("rwij,rwj->ri", self.vals, gathered, optimize=True)
         return y.reshape(-1)[:self.height]
 

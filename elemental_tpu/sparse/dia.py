@@ -1,11 +1,11 @@
-"""DIA (diagonal) sparse format — the TPU-native layout for banded/stencil
-matrices (PDE Laplacians/Helmholtz, the BASELINE SpMV configs).
+"""DIA (diagonal) sparse format — the layout for banded/stencil matrices
+(PDE Laplacians/Helmholtz, banded SuiteSparse instances).
 
-Rationale: XLA's gather lowers to a scalar loop on TPU, capping ELL/CSR SpMV
-at ~0.1% of HBM speed-of-light.  A DIA SpMV is Σ_d diag_d ∘ shift(x, off_d):
-pure contiguous streams + static slices, which XLA fuses into one
-HBM-bandwidth-bound pass — the ~SoL path.  ``best_device_format`` picks DIA
-when a small number of diagonals covers the matrix, ELL otherwise.
+A DIA SpMV is Σ_d diag_d ∘ shift(x, off_d): contiguous streams and static
+slices, which XLA fuses into one memory-bound loop with no index arrays at
+all (a CSR SpMV streams 8 index bytes per nonzero on top of the values).
+``best_device_format`` picks DIA when a small number of diagonals covers
+the matrix, ELL otherwise.
 """
 
 from __future__ import annotations
@@ -37,17 +37,16 @@ class DIAMatrix:
             d = d.astype(dtype)
         return dataclasses.replace(self, diags=jax.device_put(d, device))
 
+    @property
+    def stream_bytes(self) -> int:
+        """Device-memory bytes one SpMV must move: every diagonal plus x
+        and y once."""
+        item = np.dtype(self.diags.dtype).itemsize
+        return (len(self.offsets) * self.height + self.width
+                + self.height) * item
+
     def matvec(self, x: jnp.ndarray) -> jnp.ndarray:
-        n = self.height
-        offs = self.offsets
-        lo = -min(0, min(offs))
-        hi = max(0, max(offs)) + max(0, self.width - n)
-        xp = jnp.pad(x, (lo, max(hi, 0)))
-        y = jnp.zeros((n,), x.dtype)
-        for d, off in enumerate(offs):
-            y = y + self.diags[d] * jax.lax.dynamic_slice_in_dim(
-                xp, lo + off, n, 0)
-        return y
+        return self.matmat(x[:, None])[:, 0]
 
     def matmat(self, X: jnp.ndarray) -> jnp.ndarray:
         n = self.height
@@ -57,31 +56,39 @@ class DIAMatrix:
         xp = jnp.pad(X, ((lo, max(hi, 0)), (0, 0)))
         y = jnp.zeros((n, X.shape[1]), X.dtype)
         for d, off in enumerate(offs):
-            y = y + self.diags[d][:, None] * jax.lax.dynamic_slice_in_dim(
-                xp, lo + off, n, 0)
+            y = y + self.diags[d][:, None] * jax.lax.slice_in_dim(
+                xp, lo + off, lo + off + n, axis=0)
         return y
+
+
+jax.tree_util.register_dataclass(
+    DIAMatrix, data_fields=("diags",),
+    meta_fields=("height", "width", "offsets", "nnz"))
 
 
 def to_dia(A: SparseMatrix, max_diags: Optional[int] = None
            ) -> Optional[DIAMatrix]:
     """Convert CSR → DIA; returns None when the diagonal count is too high
     for DIA to be profitable (fill would exceed ~4× nnz)."""
-    rows = np.repeat(np.arange(A.height), A.row_nnz())
-    offsets = A.colind - rows
-    uniq = np.unique(offsets)
+    h = A.height
+    rows = np.repeat(np.arange(h, dtype=np.int64), A.row_nnz())
+    # offsets lie in [-(h-1), width-1]: a presence table over that span
+    # finds the distinct diagonals in O(nnz) without sorting
+    key = A.colind - rows + h
+    present = np.zeros(h + A.width, bool)
+    present[key] = True
+    uniq = np.flatnonzero(present)
     if max_diags is None:
-        max_diags = max(8, int(4 * A.nnz / max(A.height, 1)))
+        max_diags = max(8, int(4 * A.nnz / max(h, 1)))
     if uniq.shape[0] > max_diags:
         return None
-    diags = np.zeros((uniq.shape[0], A.height), A.vals.dtype)
-    dmap = {int(o): i for i, o in enumerate(uniq)}
-    didx = np.array([dmap[int(o)] for o in offsets])
-    diags[didx, rows] = A.vals
-    # keep diags on host: device placement is explicit (``.device()``) so
-    # symbolic conversions never bounce through a (possibly remote) default
-    # accelerator.
-    return DIAMatrix(A.height, A.width, tuple(int(o) for o in uniq),
-                     diags, A.nnz)
+    slot = np.zeros(h + A.width, np.int32)
+    slot[uniq] = np.arange(uniq.shape[0], dtype=np.int32)
+    diags = np.zeros((uniq.shape[0], h), A.vals.dtype)
+    diags[slot[key], rows] = A.vals
+    # keep diags on host: device placement is explicit (``.device()``)
+    return DIAMatrix(h, A.width, tuple(int(o) - h for o in uniq), diags,
+                     A.nnz)
 
 
 def best_device_format(A: SparseMatrix):

@@ -2,22 +2,21 @@
 ``DistMultiVec``, ``DistGraph`` — spec from 44 calling files, e.g.
 ``tests/lapack_like/SparseLDL.cpp:50-210``, ``examples/interface/BP.py``).
 
-TPU-native design: 1D row-block partition over the *flattened* mesh axis
+Design: 1D row-block partition over the *flattened* mesh axis
 ('mc','mr') — the analog of the reference's [VC,*] sparse distribution.
 
 Communication is **halo-compressed** (the reference's ``SparseAllToAll``
 pattern, ``Process.hpp:150-275``): at build time each shard's column
 footprint is split by owner, and the SpMV exchanges ONLY the off-shard
-entries actually referenced, via one padded ``all_to_all`` (ICI-friendly);
+entries actually referenced, via one padded ``all_to_all``;
 the shard's own x-block is read locally.  The transpose SpMV reuses the
 same plan with the exchange reversed: local partials accumulate into the
 compressed halo workspace and ride the all_to_all back to the owning
 shards — so ``Multiply(TRANSPOSE, DistSparseMatrix, …)`` is a first-class
 distributed kernel, not a host fallback.
 
-Local compute is the FLAT 1-D gather + sorted segment-sum form — the
-layout XLA compiles to HBM speed-of-light on TPU (2-D-indexed ELL gathers
-fall onto a ~1000× slower scalar path; see ``sparse/csr.py``).
+Local compute is the FLAT 1-D gather + sorted segment-sum form of
+``sparse/csr.py``'s ``CSRDevice``.
 """
 
 from __future__ import annotations
@@ -238,8 +237,7 @@ class DistSparseMatrix:
 
 
 # pytree: the shard/halo-plan arrays pass through jit as ARGUMENTS (closing
-# over them embeds jaxpr constants — the TPU scalar-gather cliff; see
-# core/statics.py).  Grid/sizes/host CSR ride the identity aux.
+# over them embeds jaxpr constants; see core/statics.py).  Grid/sizes/host CSR ride the identity aux.
 from ..core.statics import register_plan_pytree  # noqa: E402
 
 register_plan_pytree(DistSparseMatrix, ("lrows", "lcols", "lvals",

@@ -2,9 +2,9 @@
 X, β, Y)`` spec'd by ``tests/blas_like/Multiply.cpp:19-46``; SpGEMM spec'd by
 the IPM's Galerkin A·D·Aᵀ).
 
-Design split (TPU-first):
-  * SpMV/SpMM numeric — device (ELL gather-dot or CSR segment-sum; Pallas
-    kernel in :mod:`elemental_tpu.kernels.spmv` for the SoL path).
+Design split:
+  * SpMV/SpMM numeric — device (ELL gather-dot, CSR segment-sum, or DIA
+    for banded matrices via :func:`elemental_tpu.sparse.plan_spmv`).
   * SpGEMM symbolic — host NumPy merge (irregular, one-time); numeric — a
     device *plan* of (a_idx, b_idx → c_idx) triples executed as one
     segment-sum, so fixed-structure products (every IPM iteration) run fully
@@ -37,7 +37,7 @@ def multiply(orientation: str, alpha, A, X, beta=0.0, Y=None):
             A = A.transpose()
         elif o in ("C", "A"):
             A = A.transpose().conj()
-        dev = A.device_csr()   # flat 1-D gather form (TPU SoL; see csr.py)
+        dev = A.device_csr()   # flat 1-D gather form (see csr.py)
         xv = X.data if isinstance(X, DistMultiVec) else jnp.asarray(X)
         prod = dev.matvec(xv) if xv.ndim == 1 else dev.matmat(xv)
     elif isinstance(A, DistSparseMatrix):
@@ -126,7 +126,7 @@ def spgemm(A: SparseMatrix, B: SparseMatrix) -> SparseMatrix:
 @dataclasses.dataclass
 class GalerkinPlan:
     """Fixed-structure A·diag(d)·Aᵀ (the IPM normal-equations product,
-    BASELINE config #3 'Galerkin A·Aᵀ').  Structure computed once; per-
+    the Galerkin A·Aᵀ configuration).  Structure computed once; per-
     iteration numeric is a single fused segment-sum on device."""
 
     c_struct: SparseMatrix
@@ -196,7 +196,7 @@ def syrk_sparse(A: SparseMatrix, d: Optional[np.ndarray] = None
 
 # --------------------------------------------------------------------------
 # Distributed SpGEMM (reference ``SparseAllToAll`` row-exchange pattern,
-# ``src/core/imports/mpi_collectives.hpp``; BASELINE weak-scaling item)
+# ``src/core/imports/mpi_collectives.hpp``)
 # --------------------------------------------------------------------------
 
 @dataclasses.dataclass

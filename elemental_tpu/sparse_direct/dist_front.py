@@ -2,18 +2,19 @@
 ``numeric.hpp:29-38`` front types, ``ProcessFront.hpp:29-60`` blocked
 LDL + Trsm + rank-k on a per-node ``[MC,MR]`` grid).
 
-TPU-native design: the few flop-dominant top-separator fronts are too big
+Design: the few flop-dominant top-separator fronts are too big
 for one device's share of the level batch but too few to batch-shard, and
-GSPMD cannot pipeline a sharded Cholesky (measured r4: 90× slower).  So
+GSPMD cannot pipeline a sharded Cholesky (90× slower on the virtual CPU
+mesh).  So
 this module hand-writes the panel pipeline in ``shard_map``:
 
 * the padded front (S, S) is ROW-BLOCK sharded over the whole mesh
-  (1D analog of the reference's [MC,MR] front — on an ICI mesh the
-  all-gather of one S×nb panel per step is the only collective);
+  (1D analog of the reference's [MC,MR] front — on an all-to-all
+  interconnect the all-gather of one S×nb panel per step is the only collective);
 * per panel: every device all-gathers the panel columns, REDUNDANTLY
-  eliminates the ≤nb pivots inside them (rank-1 VPU updates on S×nb —
+  eliminates the ≤nb pivots inside them (rank-1 updates on S×nb —
   replicated work, O(S·nb²) ≪ the trailing update), then applies the
-  trailing rank-nb update to ITS OWN row block on the MXU;
+  trailing rank-nb update to ITS OWN row block as one matmul;
 * the masked-elimination semantics (``ns``-column partial factorization,
   signed pivot floors) are identical to the single-device kernels in
   ``numeric.py``, so the pool format and the extend-add are unchanged.
@@ -93,7 +94,7 @@ def dist_partial_ldl(F: jnp.ndarray, ns, mesh, nb: int = 128,
                 return Pp
 
             Pp = jax.lax.fori_loop(0, nb, elim, Pp)
-            # trailing rank-nb update of the LOCAL row block (MXU);
+            # trailing rank-nb update of the LOCAL row block (matmul);
             # precision pinned — see numeric._factor_impl
             prow = j0 + tpan
             d = Pp[prow, tpan]

@@ -45,8 +45,6 @@ class SparseLDLFactorization:
         self._dtype = default_real_dtype()
         self._factor_jit = None
         self._solve_jit = {}
-        self._ea_plans = None
-        self._ea_interpret = False
 
     # -- lifecycle ----------------------------------------------------------
     def initialize(self, A: SparseMatrix, hermitian: bool = False,
@@ -59,8 +57,8 @@ class SparseLDLFactorization:
         (pool memory), off by default (more level plans = more compile)."""
         self.A = A
         self.hermitian = hermitian
-        # platform-aware working dtype (core/policy.py): f64 under x64,
-        # f32 on TPU — no silent x64-truncation warnings downstream
+        # working dtype from core/policy.py: f64 under x64, else f32 — no
+        # silent x64-truncation warnings downstream
         if np.iscomplexobj(A.vals):
             self._dtype = jnp.complex128 if x64_enabled() else jnp.complex64
         else:
@@ -69,8 +67,7 @@ class SparseLDLFactorization:
             from .ordering import nested_dissection
             perm = nested_dissection(A, cutoff=cutoff)
         # .device(): plan index arrays become device arrays passed to the
-        # jitted factor/solve as ARGUMENTS (constants hit the TPU scalar
-        # gather path; see core/statics.py)
+        # jitted factor/solve as ARGUMENTS (see core/statics.py)
         self.symb = analyze(A, perm=perm, relax=relax,
                             size_bucket=size_bucket).device()
         self._factor_jit = None
@@ -93,32 +90,23 @@ class SparseLDLFactorization:
         assert self.symb is not None, "call initialize() first"
         self._reg = reg
         # one jitted program for the whole level loop: the tree walk's many
-        # small ops otherwise dispatch one by one (painful on remote devices)
+        # small ops otherwise dispatch one by one
         import jax
         if self._factor_jit is None:
             conj, dt = self.hermitian, self._dtype
             use_reg = reg is not None
 
             mesh, taxis, spd = self.mesh, self.tree_axis, self.spd
-            self._maybe_build_ea_plans()
-            interp = self._ea_interpret
             import os
-            from .numeric import _placement_platform
-            # distributed 2D fronts ride MXU panel updates + ICI
-            # all-gathers; on the virtual CPU mesh the replicated rank-1
-            # panel eliminations serialize (measured r5: 0.09 GF/s at 40³
-            # vs ~batch-shard-only 8-dev) — default the tier to TPU only,
-            # env-overridable either way
-            dfm_default = "1536" if _placement_platform() == "tpu" \
-                else str(1 << 30)
-            dfm = int(os.environ.get("ELEMENTAL_DIST_FRONT_MIN",
-                                     dfm_default))
+            # opt-in: fronts of at least this size are panel-factored
+            # across the whole mesh (dist_front.py) when a mesh is given;
+            # 0 (the default) keeps every front on the batched path
+            dfm = int(os.environ.get("ELEMENTAL_DIST_FRONT_MIN", "0"))
 
-            def _do(symb, vals, regv, plans):
+            def _do(symb, vals, regv):
                 num = factor(symb, vals, conjugate=conj,
                              reg=regv if use_reg else None, dtype=dt,
                              mesh=mesh, tree_axis=taxis, spd=spd,
-                             ea_plans=plans, ea_interpret=interp,
                              dist_front_min=dfm)
                 return num.pool, num.d
 
@@ -127,43 +115,14 @@ class SparseLDLFactorization:
         regv = jnp.asarray(np.zeros(self.symb.n) if reg is None else reg, rdt)
         pool, d = self._factor_jit(self.symb,
                                    jnp.asarray(self.A.vals, self._dtype),
-                                   regv, self._ea_plans)
+                                   regv)
         self.numeric = LDLFactorization(self.symb, pool, d, self.hermitian)
         return self
 
-    def _maybe_build_ea_plans(self) -> None:
-        """Build + device-put the Pallas extend-add plans when the platform
-        (or ``ELEMENTAL_EA=on``) calls for them.  ``ELEMENTAL_EA=off``
-        forces the XLA scatter path; on non-TPU platforms ``on`` runs the
-        kernel in Pallas interpret mode (CPU testing)."""
-        import os
-        mode = os.environ.get("ELEMENTAL_EA", "auto")
-        if self._ea_plans is not None or mode == "off":
-            return
-        if np.issubdtype(np.dtype(self._dtype), np.complexfloating):
-            return                      # Pallas tier is real-only
-        from .numeric import _placement_platform
-        if self.mesh is not None:
-            # the factor runs where the mesh lives, not on the default
-            # device (the CPU-mesh dryrun on a TPU-attached host would
-            # otherwise compile Mosaic kernels for the CPU backend)
-            plat = next(iter(np.asarray(self.mesh.devices).flat)).platform
-        else:
-            plat = _placement_platform()
-        if mode != "on" and plat != "tpu":
-            return
-        if plat == "tpu" and np.dtype(self._dtype).itemsize == 8:
-            return                      # Mosaic has no 64-bit types
-        from .ea_plan import build_ea_plans, plans_device
-        plans = build_ea_plans(self.symb)
-        if plans is not None:
-            self._ea_plans = plans_device(plans)
-            self._ea_interpret = plat != "tpu"
-
     def _run_factor(self, vals, regv):
         """(pool, d) from the compiled factor program — the bench/dryrun
-        timing entry (includes the extend-add plan arguments)."""
-        return self._factor_jit(self.symb, vals, regv, self._ea_plans)
+        timing entry."""
+        return self._factor_jit(self.symb, vals, regv)
 
     def change_nonzero_values(self, new_vals) -> "SparseLDLFactorization":
         """Same structure, new values → refactor reusing the symbolic plan
@@ -212,8 +171,8 @@ class SparseLDLFactorization:
     def residual_bound(self, factor: float = 100.0) -> float:
         """Dtype-derived acceptable relative residual for solve-after-factor
         on this matrix: ``factor · eps(effective dtype) · n`` (reference
-        ``Cholesky.cpp:41-44``; VERDICT r3 #6 — thresholds are derived, not
-        guessed per-site)."""
+        ``Cholesky.cpp:41-44`` — thresholds are derived, not guessed
+        per-site)."""
         assert self.A is not None
         return residual_bound(self._dtype, self.A.height, factor)
 
@@ -246,8 +205,8 @@ class DistSparseLDLFactorization(SparseLDLFactorization):
     here nested dissection is a host plan reused across refactorizations);
     the numeric executor is a single SPMD program: per-level vmapped front
     kernels sharded by front, extend-add/assembly on the (replicated) flat
-    pool — the communication/compute tradeoff of that layout is measured by
-    ``dryrun_multichip`` (1-device vs full-mesh factor GFlop/s)."""
+    pool — ``chip_smoke.py --devices 4`` times that layout against one
+    device."""
 
     def initialize(self, A, hermitian: bool = False,
                    perm: Optional[np.ndarray] = None, relax: int = 8,

@@ -1,7 +1,9 @@
 """ctypes bridge to the native C++ symbolic kernels
 (``elemental_tpu/native/symbolic.cpp``: quotient-graph minimum degree — the
-SuiteSparse-AMD slot, reference §2.6 item 2).  Falls back to NumPy
-implementations when the shared library hasn't been built."""
+SuiteSparse-AMD slot, reference §2.6 item 2).  The library is built on
+first use from ``native/Makefile``; when the build fails the callers fall
+back to NumPy implementations, with a warning carrying the compiler's
+error."""
 
 from __future__ import annotations
 
@@ -28,13 +30,19 @@ def _load():
              (os.path.exists(src) and
               os.path.getmtime(src) > os.path.getmtime(path)))
     if stale:
-        # (re)build on first use (toolchain is a hard prerequisite)
+        # (re)build on first use from the committed Makefile + source; a
+        # failed build is reported, and the NumPy orderings take over
         import subprocess
+        import warnings
         try:
             subprocess.run(["make", "-C", nat_dir, "-B"], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
-            pass
+                           capture_output=True, text=True, timeout=120)
+        except subprocess.CalledProcessError as e:
+            warnings.warn(f"building {path} failed; using the NumPy "
+                          f"orderings:\n{e.stderr.strip()}", RuntimeWarning)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            warnings.warn(f"building {path} failed ({e}); using the NumPy "
+                          f"orderings", RuntimeWarning)
     if os.path.exists(path):
         lib = ctypes.CDLL(path)
         csr_sig = [

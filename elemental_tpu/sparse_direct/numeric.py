@@ -3,13 +3,13 @@
 extend-add, ``ProcessFront.hpp:29-60`` dense front kernel,
 ``LowerSolve/Forward.hpp:77-183`` tree solves).
 
-TPU-native design: the elimination tree is processed **level by level**
+Design: the elimination tree is processed **level by level**
 (height-bucketed).  Each level is a fixed-shape batch of padded fronts living
 in one flat device pool; per level the executor runs
 
   1. extend-add: one gather + scatter-add of every child Schur complement
      (the reference's ``SparseAllToAll`` pack/unpack becomes two indexed ops),
-  2. a vmapped masked *partial* LDL of all fronts in the level (rank-1 VPU
+  2. a vmapped masked *partial* LDL of all fronts in the level (rank-1
      updates under a ``fori_loop``; the Schur complement is left in place),
 
 so the whole factorization is ~``num_levels`` fused XLA steps regardless of
@@ -33,24 +33,14 @@ import jax.numpy as jnp
 from .symbolic import SymbolicFactorization
 
 
-def _placement_platform() -> str:
-    """Platform new arrays land on RIGHT NOW (honors jax.default_device
-    contexts — unlike jax.default_backend(), which reports the highest-
-    priority backend even when tests pin arrays to CPU)."""
-    try:
-        return next(iter(jnp.zeros(()).devices())).platform
-    except Exception:
-        return jax.default_backend()
-
-
 def _clamp_pivot(dk, s):
     """Dynamic pivot regularization (reference ``RegularizedLDL``): when a
     signed floor s ≠ 0 is given for this column, boost a too-small pivot's
     MAGNITUDE to |s| — keeping the pivot's own sign (an exactly-zero pivot
     takes s's sign).  Never flips a nonzero pivot across zero: forcing the
     'expected' quasi-definite sign is an O(1) perturbation of the factored
-    matrix that cascades into overflow at scale (measured r4: the
-    sign-forcing variant NaN'd the n≈7k FD KKT factor in fp32), while a
+    matrix that cascades into overflow at scale (the sign-forcing variant
+    overflows the n≈7k FD KKT factor in fp32), while a
     magnitude boost bounds element growth by |col|/|s| and stays close to
     the true matrix; iterative refinement against the TRUE matrix absorbs
     the perturbation."""
@@ -94,10 +84,10 @@ def _masked_partial_ldl_blocked(F: jnp.ndarray, ns: jnp.ndarray,
     """Blocked right-looking variant of :func:`_masked_partial_ldl`
     (reference ``ProcessFront.hpp:29-60``: blocked LDL + Trsm + rank-k).
 
-    Per nb-column panel: eliminate within the S×nb panel with rank-1 VPU
-    updates, then apply the trailing rank-nb update as ONE S×S matmul — the
-    MXU does the O(S²·nb) work the sequential variant spends in S² outer
-    products.  Identical update domain to the rank-1 version (every (i,j)
+    Per nb-column panel: eliminate within the S×nb panel with rank-1
+    updates, then apply the trailing rank-nb update as ONE S×S matmul — a
+    matrix unit does the O(S²·nb) work the sequential variant spends in S²
+    outer products.  Identical update domain to the rank-1 version (every (i,j)
     with i,j > pivot), so Schur extend-add semantics are unchanged."""
     S = F.shape[0]
     nb = max(1, min(nb, max_ns))
@@ -134,7 +124,7 @@ def _masked_partial_ldl_blocked(F: jnp.ndarray, ns: jnp.ndarray,
         Fp = jax.lax.dynamic_slice(F, (0, j0), (Sp, nb))
         Fp = jax.lax.fori_loop(0, nb, inner, Fp)
         F = jax.lax.dynamic_update_slice(F, Fp, (0, j0))
-        # trailing rank-nb update on the MXU: U = (Lp·dp)·Lpᵀ, columns ≥ j1
+        # trailing rank-nb update as one matmul: U = (Lp·dp)·Lpᵀ, cols ≥ j1
         prow = j0 + tpan
         dp = Fp[prow, tpan]
         # non-eliminated panel columns (pivot ≥ ns) hold Schur data, not L
@@ -152,7 +142,7 @@ def _masked_partial_spd(F: jnp.ndarray, ns: jnp.ndarray, max_ns: int,
                         conjugate: bool):
     """SPD fast path: the whole partial factorization as THREE fused XLA
     ops — masked batched Cholesky of the leading block, one triangular
-    solve for the panel, one MXU matmul for the Schur complement (reference
+    solve for the panel, one matmul for the Schur complement (reference
     ``ProcessFront.hpp``'s dense-front kernel, expressed as XLA primitives
     instead of a scalar loop).  Produces the same pool layout as the LDL
     kernels: unit-L panel, D on the diagonal, Schur in the trailing block."""
@@ -200,20 +190,18 @@ class LDLFactorization:
     # -- solves -------------------------------------------------------------
     def solve(self, b, ctx=None) -> jnp.ndarray:
         # precision pinned for the same reason as factor(): the level
-        # triangular solves lower to MXU matmuls
+        # triangular solves lower to matmuls, which would run in TF32
         with jax.default_matmul_precision("highest"):
             return self._solve_impl(b, ctx)
 
     def solve_context(self):
         """Precompute per-level explicit panel inverses L⁻¹ (jit-safe).
 
-        The k=1 tree solve is dominated NOT by arithmetic but by XLA's
-        ``InvertDiagBlocksLowerTriangular`` staging + the serialized
-        ``lax.map`` chunks it forces (measured r5: 527.9 ms/solve at
-        N=150,528 — 95 % of the at-scale IPM iteration, EXPERIMENTS
-        §E5.4).  Inverting each unit-lower panel ONCE per factor turns
-        every subsequent solve's level step into one batched matmul
-        (``linv @ xf``) — HBM-bound at pool bandwidth instead.
+        Inverting each unit-lower panel ONCE per factor turns every
+        subsequent solve's level step into one batched matmul
+        (``linv @ xf``) instead of a batched triangular solve, which
+        pays off when many solves share one factor (the FGMRES sweeps of
+        the at-scale IPM).
 
         Numerics: applying an explicit triangular inverse bounds the
         residual by eps·κ(L_panel) instead of substitution's eps·‖L‖,
@@ -226,11 +214,8 @@ class LDLFactorization:
             out = []
             for lev in self.symb.levels:
                 lp, eye = self._level_panels(lev)
-                # S-wide RHS doubles the staged footprint vs the k=1
-                # solves the 1M chunk constant was swept for — halve it
-                out.append(self._chunked_tri(
-                    lp, jnp.broadcast_to(eye, lp.shape), lev, eye,
-                    forward=True, chunk=self.TRI_SOLVE_CHUNK_ELEMS // 2))
+                out.append(self._tri(lp, jnp.broadcast_to(eye, lp.shape),
+                                     forward=True))
             return tuple(out)
 
     def _solve_impl(self, b, ctx=None) -> jnp.ndarray:
@@ -267,14 +252,6 @@ class LDLFactorization:
                                            nf * S * S, 0)
         return seg.reshape(nf, S, S)
 
-    # XLA's batched triangular_solve lowers via
-    # InvertDiagBlocksLowerTriangular, which stages the batch's diagonal
-    # blocks in VMEM with LANE-PADDED layout (S→⌈S/128⌉·128) — past a few
-    # MB it overflows scoped vmem (measured r4 at nf=4019, S=88 on v5e,
-    # and again at nf=270 until padding was accounted).  Bigger level
-    # batches are processed in lax.map chunks sized in PADDED elements.
-    TRI_SOLVE_CHUNK_ELEMS = 1 << 20
-
     def _level_panels(self, lev):
         """Masked unit-lower panels (nf, S, S) for one level, plus eye."""
         S = lev.front_size
@@ -286,37 +263,12 @@ class LDLFactorization:
                        fronts, 0.0) + eye[None]
         return lp, eye
 
-    def _chunked_tri(self, lp, xf, lev, eye, forward: bool,
-                     chunk: int | None = None):
-        """Batched unit-lower triangular solve, chunked in PADDED elements
-        (see TRI_SOLVE_CHUNK_ELEMS note above)."""
-        nf = lev.sn_ids.shape[0]
-        S = lev.front_size
-        if chunk is None:
-            chunk = self.TRI_SOLVE_CHUNK_ELEMS
-
-        def tri(lp, xf):
-            return jax.lax.linalg.triangular_solve(
-                lp, xf, left_side=True, lower=True, unit_diagonal=True,
-                transpose_a=not forward, conjugate_a=(not forward)
-                and self.conjugate)
-
-        pS = S * (-(-S // 128) * 128)          # lane-padded block footprint
-        if nf * pS <= chunk:
-            return tri(lp, xf)
-        c = max(1, chunk // pS)
-        pad = (-nf) % c
-        lp_p = jnp.pad(lp, ((0, pad), (0, 0), (0, 0)))
-        # padded fronts get identity so the solve is well-defined
-        if pad:
-            lp_p = lp_p.at[nf:].add(eye[None])
-        xf_p = jnp.pad(xf, ((0, pad), (0, 0), (0, 0)))
-        k = lp_p.shape[0] // c
-        w = jax.lax.map(
-            lambda ab: tri(*ab),
-            (lp_p.reshape(k, c, S, S),
-             xf_p.reshape(k, c, S, xf.shape[-1])))
-        return w.reshape(-1, S, xf.shape[-1])[:nf]
+    def _tri(self, lp, xf, forward: bool):
+        """Batched unit-lower triangular solve of one level's panels."""
+        return jax.lax.linalg.triangular_solve(
+            lp, xf, left_side=True, lower=True, unit_diagonal=True,
+            transpose_a=not forward,
+            conjugate_a=(not forward) and self.conjugate)
 
     def _level_solve(self, xe, lev, forward: bool, linv=None):
         rows = jnp.asarray(lev.front_rows)                 # (nf, S)
@@ -329,19 +281,18 @@ class LDLFactorization:
                 op = jnp.conj(op)
             w = jnp.einsum("fij,fjk->fik", op, xf)
         else:
-            lp, eye = self._level_panels(lev)
-            w = self._chunked_tri(lp, xf, lev, eye, forward)
+            lp, _ = self._level_panels(lev)
+            w = self._tri(lp, xf, forward)
         delta = w - xf
         return xe.at[rows.reshape(-1)].add(
             delta.reshape(-1, delta.shape[-1]))
 
     def solve_with_iterative_refinement(self, A_apply, b, iters: int = 6,
-                                        unroll: Optional[bool] = None):
+                                        unroll: bool = False):
         """x ← x + F⁻¹(b − A·x) (reference
         ``SolveWithIterativeRefinement``, ``DistSparseLDLFactorization.cpp:264``).
-
-        Unrolled by default: the gather-heavy tree solve inside a lax loop
-        body hits the TPU scalar gather emitter (see kkt.solve_refined)."""
+        ``unroll``: straight-line refinement steps instead of a
+        ``fori_loop`` (one tree-solve instance in the graph)."""
         b = jnp.asarray(b)
         x = self.solve(b)
 
@@ -349,8 +300,6 @@ class LDLFactorization:
             r = b - A_apply(x)
             return x + self.solve(r)
 
-        if unroll is None:
-            unroll = _placement_platform() != "cpu"
         if unroll:
             for i in range(iters):
                 x = body(i, x)
@@ -397,8 +346,8 @@ class LDLFactorization:
         return (jnp.sum(d > 0), jnp.sum(d < 0), jnp.sum(d == 0))
 
 
-# pytree: factor state passes through jit as an ARGUMENT (constants hit the
-# TPU scalar gather path; see core/statics.py)
+# pytree: factor state passes through jit as an ARGUMENT (see
+# core/statics.py)
 from ..core.statics import register_plan_pytree  # noqa: E402
 
 register_plan_pytree(LDLFactorization, ("symb", "pool", "d"))
@@ -420,18 +369,15 @@ def _shard_level(fronts, mesh, axis):
     from jax.sharding import NamedSharding, PartitionSpec
     nf, S = fronts.shape[0], fronts.shape[1]
     ndev = mesh.devices.size
-    # Measured r4 (8-virtual-device CPU mesh, 24³/32³ Laplacians):
-    #  * sharding EVERY level ran 40× slower than single-device — per-level
-    #    collectives swamp the small batched kernels;
-    #  * 2D (S,S)-sharding the big top fronts through GSPMD ran 90× slower —
-    #    GSPMD cannot pipeline a sharded (batched) Cholesky, it all-gathers.
-    # So: batch-shard only levels with enough sibling fronts AND enough
-    # flops to amortize the boundary collectives.  The flop-dominant top
-    # separator fronts go through the hand-written shard_map panel
-    # factorization (dist_front.py, the reference's L2D [MC,MR] fronts)
-    # when S ≥ dist_front_min — TPU-gated by default (EXPERIMENTS §E5.5:
-    # the shared-socket virtual mesh taxes replicated bytes ×8, so only
-    # real multi-chip meshes reward that tier).
+    # On the 8-virtual-device CPU mesh (24³/32³ Laplacians), sharding
+    # EVERY level ran 40× slower than single-device — per-level collectives
+    # swamp the small batched kernels — and 2D (S,S)-sharding the big top
+    # fronts through GSPMD ran 90× slower: GSPMD cannot pipeline a sharded
+    # (batched) Cholesky, it all-gathers.  So: batch-shard only levels with
+    # enough sibling fronts AND enough flops to amortize the boundary
+    # collectives.  The flop-dominant top separator fronts go through the
+    # hand-written shard_map panel factorization (dist_front.py, the
+    # reference's L2D [MC,MR] fronts) when S ≥ dist_front_min.
     if nf < ndev or nf * S ** 3 < 2e9:
         return fronts
     sh = NamedSharding(mesh, PartitionSpec(axis))
@@ -440,47 +386,12 @@ def _shard_level(fronts, mesh, axis):
     return jax.device_put(fronts, sh)
 
 
-# Extend-add rates (measured): the XLA flat scatter path
-# (pool.at[child_dst].add(pool[child_src])) runs at ~0.03 Gelem/s on TPU —
-# XLA emits SCALAR code for element-granular gather/scatter — and ate 84 %
-# of r4 factor wall time.  The r5 production path below exploits that XLA
-# row-granular (1,128)-slice gathers ARE fast (measured 13-23 Gelem/s on
-# v5e): per level-round, one XLA row-gather pulls each destination
-# chunk-row's 2-row source window, and the Pallas kernel
-# ``kernels/extend_add.ea_route_add`` lane-routes + accumulates in place.
-# Plans come from ``ea_plan.build_ea_plans`` (reference ``SparseAllToAll``
-# extend-add, ``Process.hpp:150-275``).
-
-
-def _ea_apply(pool, lev, plan, interpret: bool):
-    """Apply one level's extend-add via the Pallas route-add kernel."""
-    from ..kernels.extend_add import BLOCK_ROWS, ea_route_add
-    nf = lev.sn_ids.shape[0]
-    S = lev.front_size
-    Sl = plan.Sl
-    seg = jax.lax.dynamic_slice_in_dim(pool, lev.offset, nf * S * S, 0)
-    seg = seg.reshape(nf * S, S)
-    segp = jnp.pad(seg, ((0, 0), (0, Sl - S))) if Sl > S else seg
-    segp = segp.reshape(-1, 128)
-    segp = jnp.pad(segp, ((0, BLOCK_ROWS), (0, 0)))   # scratch block
-    pool128 = pool.reshape(-1, 128)
-    for r in plan.rounds:
-        w = pool128[r.wpair]                # (Rr, 2, 128) XLA row gather
-        segp = ea_route_add(segp, w, r.idx, r.dstblk, interpret=interpret)
-    seg = segp[:-BLOCK_ROWS].reshape(nf * S, Sl)
-    if Sl > S:
-        seg = seg[:, :S]
-    return jax.lax.dynamic_update_slice_in_dim(pool, seg.reshape(-1),
-                                               lev.offset, 0)
-
-
 def factor(symb: SymbolicFactorization, a_vals, conjugate: bool = False,
            reg: Optional[np.ndarray] = None,
            dtype=jnp.float64, mesh=None, tree_axis: Optional[str] = None,
            panel_blocksize: int = 32, spd: bool = False,
-           pivot_floor=None, ea_plans=None,
-           ea_interpret: bool = False,
-           dist_front_min: int = 1536) -> LDLFactorization:
+           pivot_floor=None,
+           dist_front_min: int = 0) -> LDLFactorization:
     """Numeric multifrontal LDL given the symbolic plan and A's values
     (+ optional diagonal regularization in *original* order, the
     ``RegularizedLDL`` path).
@@ -488,7 +399,7 @@ def factor(symb: SymbolicFactorization, a_vals, conjugate: bool = False,
     ``mesh``: optional ``jax.sharding.Mesh`` — each level's front batch is
     sharded over ``tree_axis`` (default: the mesh's first axis), mapping
     sibling subtrees to devices.  ``panel_blocksize``: panel width of the
-    blocked MXU front kernel (levels whose elimination width exceeds it use
+    blocked front kernel (levels whose elimination width exceeds it use
     the blocked right-looking path).
 
     ``pivot_floor``: optional (n,) SIGNED per-column pivot floors in
@@ -497,30 +408,33 @@ def factor(symb: SymbolicFactorization, a_vals, conjugate: bool = False,
     magnitude ≥ |floor| (see :func:`_clamp_pivot`); pair with iterative
     refinement / FGMRES against the unperturbed matrix.
 
-    ``ea_plans``: optional :class:`ea_plan.EAPlans` — levels present in it
-    run their extend-add through the Pallas route-add kernel instead of
-    the XLA flat scatter (``ea_interpret``: Pallas interpret mode, for
-    CPU testing)."""
+    ``dist_front_min``: with a ``mesh`` and a value > 0, levels of at
+    most 8 fronts of size ≥ this are panel-factored across the whole mesh
+    (:mod:`.dist_front`); 0 leaves the tier off."""
     with jax.default_matmul_precision("highest"):
         return _factor_impl(symb, a_vals, conjugate, reg, dtype, mesh,
                             tree_axis, panel_blocksize, spd, pivot_floor,
-                            ea_plans, ea_interpret, dist_front_min)
+                            dist_front_min)
 
 
 def _factor_impl(symb, a_vals, conjugate, reg, dtype, mesh, tree_axis,
-                 panel_blocksize, spd, pivot_floor, ea_plans, ea_interpret,
-                 dist_front_min):
+                 panel_blocksize, spd, pivot_floor, dist_front_min):
     # Matmul precision is pinned to 'highest' by the factor() wrapper: the
     # front kernels' trailing updates ((Lp·dp)·Lpᵀ, P·Pᵀ, the batched
-    # cholesky/triangular_solve) otherwise run through the TPU's 1-pass
-    # bf16 MXU pipeline, and bf16-level product error amplified by the
-    # factorization's intermediate cancellation destroys the factor for
-    # quasi-definite KKT matrices (measured r5 at N=150K, θ spread
-    # [0.05,0.72]: factored-solve residual 4.8 vs its OWN factored matrix
-    # in default precision; 1.8e-14 in x64 — pure product precision).
+    # cholesky/triangular_solve) otherwise may run f32 products in TF32 or
+    # bf16, and that product error amplified by the factorization's
+    # intermediate cancellation destroys the factor for quasi-definite KKT
+    # matrices (a factored-solve residual of O(1) against its OWN factored
+    # matrix at N=150K with θ spread [0.05, 0.72]).
     a_vals = jnp.asarray(a_vals, dtype)
-    alloc = symb.pool_size if ea_plans is None else ea_plans.pool_alloc
-    pool = jnp.zeros((alloc,), dtype)
+    pin = lambda p: p
+    if mesh is not None:
+        # keep the flat pool replicated: left to GSPMD it is sharded, and
+        # every dynamic-offset level update then all-gathers a full copy
+        from jax.sharding import NamedSharding, PartitionSpec
+        rep = NamedSharding(mesh, PartitionSpec())
+        pin = lambda p: jax.lax.with_sharding_constraint(p, rep)
+    pool = pin(jnp.zeros((symb.pool_size,), dtype))
     pfp = None
     if pivot_floor is not None:
         # permuted floors, with a trailing 0 row absorbing padded gathers
@@ -539,26 +453,19 @@ def _factor_impl(symb, a_vals, conjugate, reg, dtype, mesh, tree_axis,
                 regp[jnp.asarray(lev.diag_cols)])
 
     d = jnp.zeros((symb.n,), dtype)
-    for li, lev in enumerate(symb.levels):
+    for lev in symb.levels:
         nf = lev.sn_ids.shape[0]
         S = lev.front_size
-        lev_plan = (ea_plans.levels.get(li)
-                    if ea_plans is not None else None)
-        if lev_plan is not None:
-            if lev_plan.spill_dst.size:
-                pool = pool.at[lev_plan.spill_dst].add(
-                    pool[lev_plan.spill_src])
-            pool = _ea_apply(pool, lev, lev_plan, ea_interpret)
-        elif lev.child_dst.size:
-            pool = pool.at[jnp.asarray(lev.child_dst)].add(
-                pool[jnp.asarray(lev.child_src)])
+        if lev.child_dst.size:
+            pool = pin(pool.at[jnp.asarray(lev.child_dst)].add(
+                pool[jnp.asarray(lev.child_src)]))
         seg = jax.lax.dynamic_slice_in_dim(pool, lev.offset, nf * S * S, 0)
         fronts = seg.reshape(nf, S, S)
         # distributed 2D-front path (reference L2D [MC,MR] fronts,
         # numeric.hpp:29-38): the few flop-dominant top-separator fronts
         # are panel-factored across the WHOLE mesh instead of replicated
         use_dist_front = (
-            mesh is not None and S >= dist_front_min and nf <= 8
+            mesh is not None and 0 < dist_front_min <= S and nf <= 8
             and not jnp.issubdtype(jnp.dtype(dtype), jnp.complexfloating))
         if use_dist_front:
             from .dist_front import dist_partial_ldl
@@ -571,8 +478,8 @@ def _factor_impl(symb, a_vals, conjugate, reg, dtype, mesh, tree_axis,
                     fronts[fs], ns_dev[fs], mesh, conjugate=conjugate,
                     pf=None if pf_lev is None else pf_lev[fs]))
             fronts = jnp.stack(outs)
-            pool = jax.lax.dynamic_update_slice_in_dim(
-                pool, fronts.reshape(-1), lev.offset, 0)
+            pool = pin(jax.lax.dynamic_update_slice_in_dim(
+                pool, fronts.reshape(-1), lev.offset, 0))
             d = d.at[jnp.asarray(lev.diag_cols)].set(
                 pool[jnp.asarray(lev.diag_dst)])
             continue
@@ -599,8 +506,8 @@ def _factor_impl(symb, a_vals, conjugate, reg, dtype, mesh, tree_axis,
             else:
                 fronts = jax.vmap(kern)(fronts, jnp.asarray(lev.ns),
                                         pf_lev)
-        pool = jax.lax.dynamic_update_slice_in_dim(
-            pool, fronts.reshape(-1), lev.offset, 0)
+        pool = pin(jax.lax.dynamic_update_slice_in_dim(
+            pool, fronts.reshape(-1), lev.offset, 0))
         d = d.at[jnp.asarray(lev.diag_cols)].set(
             pool[jnp.asarray(lev.diag_dst)])
 

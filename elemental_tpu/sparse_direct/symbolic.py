@@ -265,8 +265,7 @@ class SymbolicFactorization:
     def device(self, device=None) -> "SymbolicFactorization":
         """Move the plan's big index arrays onto the device (int32 when the
         pool allows) so the plan can be passed as a jit ARGUMENT — closing
-        over them embeds jaxpr constants, which drops XLA's TPU gather/
-        scatter onto a scalar path (see ``core/statics.py``)."""
+        over them embeds jaxpr constants (see ``core/statics.py``)."""
         import jax
         import jax.numpy as jnp
         idt = np.int32 if self.pool_size < 2**31 - 1 else np.int64
@@ -329,9 +328,9 @@ def analyze(A: SparseMatrix, perm: Optional[np.ndarray] = None,
     of similar front size (new bucket when a front exceeds ``size_bucket``×
     the bucket's smallest) — same-height supernodes are independent
     siblings, so any split is sound.  Cuts the pad-to-level-max waste that
-    dominates pool memory and front flops at scale (measured r5: a 48³
+    dominates pool memory and front flops at scale (a 48³
     Laplacian's height-bucketed pool is 12 GB f64; size buckets cut it
-    several-fold) at the cost of more level plans (more compiled steps)."""
+    to 5.1 GB) at the cost of more level plans (more compiled steps)."""
     n = A.height
     if perm is None:
         from .ordering import nested_dissection

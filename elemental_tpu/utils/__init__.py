@@ -1,2 +1,3 @@
-"""Utilities: roofline audits, benchmark harness."""
-from .roofline import RooflineReport, audit, chip_specs, marginal_time
+"""Utilities: roofline audits, collective audits."""
+from .roofline import (CHIPS, ChipSpec, RooflineReport, audit, chip_spec,
+                       marginal_time, matmul_unit)

@@ -1,49 +1,71 @@
-"""Roofline audit helpers (BASELINE requirement: "every kernel
-roofline-audited vs per-chip speed of light").
+"""Roofline audit helpers: per-device peak rates and speed-of-light shares.
 
 Usage::
 
-    from elemental_tpu.utils.roofline import audit, chip_specs
-    report = audit(fn, args, flops=..., bytes_accessed=...)
+    from elemental_tpu.utils.roofline import audit, chip_spec
+    report = audit(fn, args, flops=..., bytes_accessed=..., unit="cuda_f32")
     # report.sol_fraction, report.achieved_flops, report.bound
 
-Timing uses the marginal-chain methodology (see bench.py): dependent sweeps
-of two lengths remove fixed dispatch latency.
+Timing uses the marginal-chain methodology: dependent sweeps of two lengths
+remove fixed dispatch latency.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import jax
 import jax.numpy as jnp
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class ChipSpec:
     name: str
-    hbm_bw: float          # B/s
-    peak_f32: float        # FLOP/s (MXU, f32 via 3-pass ≈ bf16/8?) — use
-    peak_bf16: float       # FLOP/s
+    hbm_bw: float                 # B/s
+    peaks: Dict[str, float]       # execution unit -> dense FLOP/s
+    source: str
 
 
+# One table, keyed by ``jax.Device.device_kind``.  A device missing from it
+# is an error: a guessed peak makes every roofline share meaningless.
 CHIPS = {
-    "v5e": ChipSpec("v5e", 819e9, 98.3e12 / 2, 196.6e12),
-    "v5 lite": ChipSpec("v5e", 819e9, 98.3e12 / 2, 196.6e12),
-    "v4": ChipSpec("v4", 1228e9, 137.5e12 / 2, 275e12),
-    "v5p": ChipSpec("v5p", 2765e9, 229.5e12, 459e12),
-    "v6e": ChipSpec("v6e", 1640e9, 459e12 / 2, 918e12),
+    "NVIDIA H100 80GB HBM3": ChipSpec(
+        "H100 SXM", 3.35e12,
+        {"tensor_bf16": 989e12,   # bf16/fp16 operands on the tensor cores
+         "tensor_tf32": 495e12,   # f32 matmuls at default precision
+         "cuda_f32": 67e12,       # f32 FMA outside the tensor cores
+         "tensor_f64": 67e12,     # DGEMM on the tensor cores
+         "cuda_f64": 34e12},      # f64 FMA outside the tensor cores
+        "NVIDIA H100 Tensor Core GPU data sheet, SXM5, dense rates at the "
+        "700 W board power"),
 }
 
 
-def chip_specs() -> ChipSpec:
-    kind = jax.devices()[0].device_kind.lower()
-    for k, spec in CHIPS.items():
-        if k in kind:
-            return spec
-    return CHIPS["v5e"]
+def chip_spec(device_kind: Optional[str] = None) -> ChipSpec:
+    """The peak table entry for ``device_kind`` (default: the first
+    device's); raises ``KeyError`` for a device the table does not hold."""
+    kind = device_kind or jax.devices()[0].device_kind
+    try:
+        return CHIPS[kind]
+    except KeyError:
+        raise KeyError(f"no peak rates for device kind {kind!r}; add it to "
+                       f"elemental_tpu.utils.roofline.CHIPS with its "
+                       f"source") from None
+
+
+def matmul_unit(dtype, precision: str = "highest") -> str:
+    """The execution unit a dense matmul of ``dtype`` runs on under
+    ``precision``: bf16 on the bf16 tensor cores; f32 at 'highest' on the
+    CUDA cores (full f32 products), at lower precision in TF32; f64 on the
+    f64 tensor cores."""
+    dt = jnp.dtype(dtype)
+    if dt == jnp.bfloat16 or dt == jnp.float16:
+        return "tensor_bf16"
+    if dt in (jnp.float64, jnp.complex128):
+        return "tensor_f64"
+    return "cuda_f32" if precision == "highest" else "tensor_tf32"
 
 
 @dataclasses.dataclass
@@ -52,14 +74,15 @@ class RooflineReport:
     achieved_flops: float
     achieved_bw: float
     bound: str              # 'memory' or 'compute'
+    unit: str
     sol_seconds: float
     sol_fraction: float
 
     def __str__(self):
         return (f"{self.seconds * 1e6:.1f} us | "
                 f"{self.achieved_flops / 1e12:.2f} TFLOP/s, "
-                f"{self.achieved_bw / 1e9:.0f} GB/s | {self.bound}-bound, "
-                f"{100 * self.sol_fraction:.1f}% of SoL")
+                f"{self.achieved_bw / 1e9:.0f} GB/s | {self.bound}-bound "
+                f"({self.unit}), {100 * self.sol_fraction:.1f}% of SoL")
 
 
 def marginal_time(fn: Callable, x0, r1: int = 20, r2: int = 100,
@@ -81,21 +104,22 @@ def marginal_time(fn: Callable, x0, r1: int = 20, r2: int = 100,
 
 
 def audit(fn: Callable, x0, flops: float, bytes_accessed: float,
-          dtype=jnp.float32, chain: bool = True,
+          unit: str = "cuda_f32", chain: bool = True,
           seconds: Optional[float] = None) -> RooflineReport:
-    """Roofline-audit a self-composable kernel (fn: x → x-like)."""
-    spec = chip_specs()
+    """Roofline-audit a self-composable kernel (fn: x → x-like) whose
+    arithmetic runs on ``unit`` (see :func:`matmul_unit`)."""
+    spec = chip_spec()
     if seconds is None:
         seconds = marginal_time(fn, x0) if chain else _simple_time(fn, x0)
-    peak = spec.peak_bf16 if dtype == jnp.bfloat16 else spec.peak_f32
     t_mem = bytes_accessed / spec.hbm_bw
-    t_cmp = flops / peak
+    t_cmp = flops / spec.peaks[unit]
     sol = max(t_mem, t_cmp)
     return RooflineReport(
         seconds=seconds,
         achieved_flops=flops / seconds,
         achieved_bw=bytes_accessed / seconds,
         bound="memory" if t_mem >= t_cmp else "compute",
+        unit=unit,
         sol_seconds=sol,
         sol_fraction=sol / seconds,
     )

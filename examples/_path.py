@@ -5,16 +5,8 @@ import sys
 sys.path.insert(0, os.path.abspath(os.path.join(os.path.dirname(__file__),
                                                 "..")))
 
-# The reference is an fp64 LAPACK-world library; examples run in fp64 on
-# hosts.  On TPU, f64 is software-emulated and several XLA expanders
-# (LuDecomposition, Eigh tails) are f32-only — there the examples run in
-# the platform's native f32 (+ compensated arithmetic where the library
-# uses it), matching elemental_tpu.core.policy.
+# The reference is an fp64 LAPACK-world library; the examples run in fp64
+# on every platform (the CPU and the GPU both compute it natively).
 import jax
 
-try:
-    _plat = jax.default_backend()
-except Exception:  # pragma: no cover - no devices at all
-    _plat = "cpu"
-if _plat == "cpu":
-    jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_enable_x64", True)

@@ -1,5 +1,5 @@
-"""The minimum end-to-end slice (SURVEY §7): 2-D Laplacian, row-partitioned
-over the device mesh, CG-solved with the stencil SpMV, roofline-audited.
+"""The minimum end-to-end slice (SURVEY §7): 2-D Laplacian, planned for
+the device by ``plan_spmv`` (the DIA stencil tier) and CG-solved.
 
 Run:  python examples/cg_laplacian.py --n1 256
 """
@@ -10,12 +10,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import elemental_tpu as el
 from elemental_tpu.core.environment import Args, output
-from elemental_tpu.kernels.spmv import plan_stencil_spmv, stencil_spmv
 from elemental_tpu.lapack import cg
 from elemental_tpu.matrices import sparse_laplacian_2d
-from elemental_tpu.sparse import to_dia
+from elemental_tpu.sparse import plan_spmv
 
 
 def main():
@@ -25,18 +23,15 @@ def main():
     n1 = args["n1"]
 
     A = sparse_laplacian_2d(n1, n1, scaled=False)
-    dia = to_dia(A)
-    plan = plan_stencil_spmv(
-        dia.offsets, np.asarray(dia.diags).astype(np.float32), A.height,
-        cols=min(1024, n1 * n1)).device(jax.devices()[0])
+    plan = plan_spmv(A).device(jax.devices()[0], jnp.float32)
     b = jax.device_put(
         np.random.default_rng(0).standard_normal(A.height).astype(np.float32),
         jax.devices()[0])
 
-    res = jax.jit(lambda b: cg(lambda v: stencil_spmv(plan, v), b,
-                               tol=1e-6, max_iters=5000))(b)
+    res = jax.jit(lambda plan, b: cg(plan.matvec, b, tol=1e-6,
+                                     max_iters=5000))(plan, b)
     x = res.x
-    output(f"CG: {int(res.iterations)} iterations, "
+    output(f"CG ({plan.kind} plan): {int(res.iterations)} iterations, "
            f"residual {float(res.residual):.3e}")
     check = np.linalg.norm(A.to_scipy() @ np.asarray(x) - np.asarray(b))
     output(f"host-verified residual: {check:.3e}")

@@ -38,7 +38,7 @@ def main():
     r3 = np.linalg.norm(Astab.T @ Xr + Xr @ Astab - Xr @ K @ Xr + L) \
         / np.linalg.norm(L)
     output(f"sylvester {r1:.2e}, lyapunov {r2:.2e}, riccati {r3:.2e}")
-    # dtype-aware bounds (f32 on TPU: sign iterations carry ~1e3·eps)
+    # dtype-aware bounds (in f32 the sign iterations carry ~1e3·eps)
     from elemental_tpu.core.policy import default_real_dtype
     eps = float(jnp.finfo(default_real_dtype()).eps)
     b1 = max(1e-8, 3e3 * eps)

@@ -1,5 +1,5 @@
 """Extended-precision (double-word) tier tests (reference QD/BigFloat tier,
-``src/core/imports/qd.cpp``; SURVEY §7 "fp64 via double-word Pallas/VPU
+``src/core/imports/qd.cpp``; SURVEY §7 "fp64 via double-word
 kernels").
 
 The invariant under test: base-f32 DD arithmetic must deliver ≥ ~1.8× the

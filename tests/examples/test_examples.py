@@ -14,13 +14,13 @@ DRIVERS = ["bp", "bpdn", "lav", "cp", "ds", "en", "nnls", "svm", "tv",
            "lp_affine", "qp_direct_ex", "socp_trivial",
            "long_only_portfolio", "least_squares", "linear_solve", "eig",
            "fox_li", "different_grids", "sparse_multiply",
-           # r4 ports (VERDICT r3 #10)
+           # second wave of ports
            "glm", "lse", "tikhonov_ex", "rls", "soc_atom",
            "pseudospectra_portrait", "control_ex", "triang_eig_ex",
            "pnorm", "symmetric_solve_ex", "inv_pos", "simple_solve",
            "remote_update", "lattice_tools", "gepp_growth",
            "product_lanczos_ex", "matrix_zoo", "dynamic_reg_counter",
-           # r5 ports (VERDICT r4 #6)
+           # third wave of ports
            "rnnls_ex", "bp_complex", "qp_affine_ex", "soc_members", "lcf",
            "remote_dist_sparse", "multiply_ex", "sequential_least_squares",
            "sequential_linear_solve", "sequential_lse", "lll_singular",

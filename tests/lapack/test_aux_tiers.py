@@ -1,5 +1,5 @@
 """Tests for control, io, 3D gemm, tridiag-eig (MRRR slot), FlamePart/Proxy,
-Pallas kernel modules (interpret mode), native ordering."""
+native ordering."""
 
 import numpy as np
 import pytest
@@ -166,42 +166,6 @@ def test_proxy(grid8):
     out = rw.restore(rw.value)
     assert out.dist() == (MC, MR)
     np.testing.assert_array_equal(out.to_numpy(), a)
-
-
-# -- Pallas kernel modules (interpret mode on CPU) -------------------------------
-
-def test_pallas_elementwise_interpret():
-    from jax.experimental.pallas import tpu as pltpu
-    from elemental_tpu.kernels import elementwise as ew
-    x = jnp.asarray(RNG.standard_normal((16, 128)).astype(np.float32))
-    y = jnp.asarray(RNG.standard_normal((16, 128)).astype(np.float32))
-    with pltpu.force_tpu_interpret_mode():
-        np.testing.assert_allclose(np.asarray(ew.axpy(2.0, x, y)),
-                                   np.asarray(y) + 2 * np.asarray(x),
-                                   rtol=1e-6)
-        np.testing.assert_allclose(np.asarray(ew.hadamard(x, y)),
-                                   np.asarray(x) * np.asarray(y), rtol=1e-6)
-        np.testing.assert_allclose(np.asarray(ew.transpose(x)),
-                                   np.asarray(x).T, rtol=1e-6)
-        assert float(ew.fill((8, 128), 3.0).sum()) == 3.0 * 8 * 128
-
-
-def test_pallas_matmul_interpret():
-    from jax.experimental.pallas import tpu as pltpu
-    from elemental_tpu.kernels.matmul import masked_rank_k_update, matmul
-    a = jnp.asarray(RNG.standard_normal((64, 32)).astype(np.float32))
-    b = jnp.asarray(RNG.standard_normal((32, 64)).astype(np.float32))
-    c = jnp.asarray(RNG.standard_normal((64, 64)).astype(np.float32))
-    with pltpu.force_tpu_interpret_mode():
-        np.testing.assert_allclose(np.asarray(matmul(a, b)),
-                                   np.asarray(a) @ np.asarray(b), rtol=1e-4,
-                                   atol=1e-4)
-        out = np.asarray(masked_rank_k_update(c, a, b, alpha=0.5))
-    expect = np.asarray(c) + 0.5 * np.tril(np.asarray(a) @ np.asarray(b))
-    expect = np.where(np.tri(64, dtype=bool),
-                      np.asarray(c) + 0.5 * (np.asarray(a) @ np.asarray(b)),
-                      np.asarray(c))
-    np.testing.assert_allclose(out, expect, rtol=1e-4, atol=1e-4)
 
 
 def test_native_minimum_degree():

@@ -188,7 +188,7 @@ def test_qr_pivoted():
     assert np.allclose(q @ r, a[:, p], rtol=1e-8, atol=1e-8)
     d = np.abs(np.diag(r))
     assert np.all(d[:-1] >= d[1:] - 1e-8)  # pivoting ⇒ decreasing |r_kk|
-    # orthonormality of the loop-formed Q (r4: the loop's own factorization
+    # orthonormality of the loop-formed Q (the loop's own factorization
     # is the output — no second QR)
     assert np.allclose(q.T @ q, np.eye(n), atol=1e-8)
 

@@ -377,7 +377,7 @@ def test_hermitian_tridiag_blocked_matches_unblocked():
 
 def test_blocked_bidiag_hessenberg_match():
     """Blocked (latrd-style panel) Bidiag/Hessenberg == rank-1 variants'
-    invariants at sizes above the dispatch threshold (r4: VERDICT #8)."""
+    invariants at sizes above the dispatch threshold."""
     import jax
     import jax.numpy as jnp
     from elemental_tpu.lapack.condense import (_bidiag_blocked,

@@ -119,8 +119,8 @@ def test_choose_algorithm_covers_all_variants(grid8):
 @pytest.mark.parametrize("alg", ["stationary_a", "stationary_b"])
 def test_summa_no_full_operand_allgather(grid8, alg):
     """The big-operand panel schemes must never replicate an operand over
-    BOTH mesh axes (r3's stationary_a/b gathered the non-stationary operand
-    to full size on every rank — O(k·n) memory).  Assert no all-gather in
+    BOTH mesh axes (gathering the non-stationary operand to full size on
+    every rank costs O(k·n) memory).  Assert no all-gather in
     the compiled HLO produces a full-m×k or full-k×n array."""
     m, k, n = 64, 128, 96
     a = _rand(m, k)

@@ -265,3 +265,58 @@ def test_lp_direct_large_path_ipf(monkeypatch):
     refo = so.linprog(c, A_eq=A.to_dense(), b_eq=b, bounds=(0, None),
                       method="highs")
     np.testing.assert_allclose(res.objective, refo.fun, rtol=1e-6)
+
+
+def test_kkt_pivot_floor_in_matrix_scale():
+    """``prepare`` maps floors given in the matrix's own scale into the
+    equilibrated scale (× D²): a floor at half the LP KKT's regularization
+    leaves the factor untouched, a large one lifts every pivot to it."""
+    import jax.numpy as jnp
+    from elemental_tpu.optimization.lp import _build_lp_kkt, sparse_ruiz
+    rng = np.random.default_rng(4)
+    a = np.abs(rng.standard_normal((12, 30))) + 0.1
+    A, _, _ = sparse_ruiz(SparseMatrix.from_dense(a))
+    kkt, _ = _build_lp_kkt(A, 1e-6, 1e-6, None)
+    vals = kkt.assemble([jnp.asarray(np.abs(rng.standard_normal(30)) + .1)])
+    sign = jnp.concatenate([jnp.ones(30), -jnp.ones(12)])
+    f0 = kkt.prepare(vals)
+    f1 = kkt.prepare(vals, pivot_floor=0.5e-6 * sign)
+    np.testing.assert_array_equal(np.asarray(f1.d), np.asarray(f0.d))
+    f2 = kkt.prepare(vals, pivot_floor=1e3 * sign)
+    floor = 1e3 * np.asarray(f2.scale) ** 2
+    perm = np.asarray(kkt.symb.perm)
+    assert np.all(np.abs(np.asarray(f2.d)) >= floor[perm] * (1 - 1e-12))
+    assert np.array_equal(np.sign(np.asarray(f2.d)), np.sign(np.asarray(f0.d)))
+
+
+def test_pivot_floor_boosts_zero_pivot_keeps_regularization_pivots():
+    """The LP's half-regularization floor on a matrix with one exactly zero
+    pivot (the block [[1, 1], [1, 1]]) and pivots exactly at ±γ: without
+    the floor the factored solve is not finite; with it the zero pivot is
+    lifted to γ/2 and the ±γ pivots stay as they are."""
+    import jax.numpy as jnp
+    from elemental_tpu.sparse_direct.numeric import factor
+    from elemental_tpu.sparse_direct.symbolic import analyze
+    g = 1e-6
+    a = np.zeros((6, 6))
+    a[:2, :2] = 1.0
+    a[2, 2], a[3, 3] = g, -g
+    a[4:, 4:] = [[2.0, 1.0], [1.0, -3.0]]
+    A = SparseMatrix.from_dense(a)
+    symb = analyze(A).device()
+    floor = 0.5 * np.array([g, g, g, -g, g, -g])
+    perm = np.asarray(symb.perm)
+    b = np.arange(1.0, 7.0)
+    f0 = factor(symb, jnp.asarray(A.vals), dtype=jnp.float64)
+    assert not np.all(np.isfinite(np.asarray(f0.solve(jnp.asarray(b)))))
+    f1 = factor(symb, jnp.asarray(A.vals), dtype=jnp.float64,
+                pivot_floor=jnp.asarray(floor))
+    d0, d1 = np.asarray(f0.d)[np.argsort(perm)], np.asarray(f1.d)[
+        np.argsort(perm)]
+    zero = np.flatnonzero(d0 == 0)
+    assert zero.size == 1 and zero[0] < 2
+    assert d1[zero[0]] == floor[zero[0]]
+    keep = np.setdiff1d(np.arange(6), zero)
+    np.testing.assert_array_equal(d1[keep], d0[keep])
+    np.testing.assert_array_equal(d1[[2, 3]], [g, -g])
+    assert np.all(np.isfinite(np.asarray(f1.solve(jnp.asarray(b)))))

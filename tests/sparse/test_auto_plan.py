@@ -6,41 +6,43 @@ import pytest
 import scipy.sparse as sp
 
 import jax
-from jax.experimental.pallas import tpu as pltpu
 
-from elemental_tpu.matrices import sparse_laplacian_2d
+from elemental_tpu.matrices import sparse_laplacian_2d, sparse_laplacian_3d
 from elemental_tpu.sparse import SparseMatrix, plan_spmv
 
 
-def _check(plan, A, rng, atol=1e-5):
-    x = rng.standard_normal(A.width).astype(np.float32)
+def _check(plan, A, rng, dtype=np.float32):
+    x = rng.standard_normal(A.width).astype(dtype)
     xp = jax.numpy.asarray(plan.to_plan_space(x))
-    with pltpu.force_tpu_interpret_mode():
-        y = np.asarray(plan.matvec(xp))
+    y = np.asarray(jax.jit(lambda p, v: p.matvec(v))(plan, xp))
     y = plan.from_plan_space(y)
-    expect = A.to_scipy() @ x
-    assert np.allclose(y, expect, atol=atol * max(1.0, np.abs(expect).max()))
+    expect = A.to_scipy().astype(np.float64) @ x.astype(np.float64)
+    tol = 1e-5 if dtype == np.float32 else 1e-12
+    assert np.abs(y - expect).max() <= tol * max(1.0, np.abs(expect).max())
+
+
+def _scrambled_banded(rng, n=512, bw=6):
+    offs = range(-bw, bw + 1)
+    S = sp.diags([rng.standard_normal(n) for _ in offs], list(offs),
+                 shape=(n, n), format="csr")
+    S = S + S.T                       # symmetric banded
+    p = rng.permutation(n)            # scramble
+    return SparseMatrix.from_scipy(S[p][:, p].tocsr())
 
 
 def test_laplacian_direct_stencil():
     A = sparse_laplacian_2d(24, 24, scaled=False)
     A = SparseMatrix.from_scipy(A.to_scipy().astype(np.float32))
-    plan = plan_spmv(A, cols=128)
-    assert plan.kind == "stencil"
+    plan = plan_spmv(A)
+    assert plan.kind == "stencil" and plan.dia is not None
     _check(plan, A, np.random.default_rng(0))
 
 
 def test_scrambled_banded_recovers_via_rcm():
     rng = np.random.default_rng(1)
-    n, bw = 512, 6
-    offs = range(-bw, bw + 1)
-    diags = [rng.standard_normal(n) for _ in offs]
-    S = sp.diags(diags, list(offs), shape=(n, n), format="csr")
-    S = (S + S.T).astype(np.float32)  # symmetric banded
-    p = rng.permutation(n)            # scramble
-    Ssc = S[p][:, p].tocsr()
-    A = SparseMatrix.from_scipy(Ssc)
-    plan = plan_spmv(A, cols=128)
+    A = _scrambled_banded(rng)
+    A = SparseMatrix.from_scipy(A.to_scipy().astype(np.float32))
+    plan = plan_spmv(A)
     assert plan.kind == "stencil_rcm"
     assert plan.perm is not None
     _check(plan, A, rng)
@@ -54,13 +56,11 @@ def test_unstructured_falls_back_to_csr():
     vals = rng.standard_normal(n * k).astype(np.float32)
     S = sp.csr_matrix((vals, (rows, cols)), shape=(n, n))
     A = SparseMatrix.from_scipy(S)
-    plan = plan_spmv(A, cols=128)
-    assert plan.kind == "gather_csr" and plan.slow
+    plan = plan_spmv(A)
+    assert plan.kind == "csr" and plan.csr is not None
     _check(plan, A, rng)
-    # the honest XLA-only fallback still dispatches and is marked slow
-    plan2 = plan_spmv(A, cols=128, pallas_gather=False)
-    assert plan2.kind == "csr" and plan2.slow
-    _check(plan2, A, rng)
+    # without the RCM attempt the plan is the same CSR tier
+    assert plan_spmv(A, try_rcm=False).kind == "csr"
 
 
 def test_rectangular_uses_ell_or_stencil():
@@ -68,12 +68,45 @@ def test_rectangular_uses_ell_or_stencil():
     S = sp.random(96, 128, density=0.05, format="csr",
                   random_state=4, dtype=np.float32)
     A = SparseMatrix.from_scipy(S)
-    plan = plan_spmv(A, cols=128)
+    plan = plan_spmv(A)
     _check(plan, A, rng)
 
 
 def test_stream_bytes_accounting():
     A = sparse_laplacian_2d(16, 16, scaled=False)
     A = SparseMatrix.from_scipy(A.to_scipy().astype(np.float32))
-    plan = plan_spmv(A, cols=128)
-    assert plan.stream_bytes > 0
+    plan = plan_spmv(A)
+    # 5 diagonals + x + y, 4 bytes each, per row
+    assert plan.stream_bytes == (5 + 2) * 256 * 4
+    S = sp.random(256, 256, density=0.05, format="csr", random_state=6,
+                  dtype=np.float32)
+    B = SparseMatrix.from_scipy(S)
+    csr = plan_spmv(B, try_rcm=False)
+    assert csr.kind == "csr"
+    # values + two int32 index streams per nonzero, plus x and y
+    assert csr.stream_bytes == B.nnz * 12 + 2 * 256 * 4
+
+
+def _case(name, rng):
+    if name == "lap2d":
+        return sparse_laplacian_2d(20, 17, scaled=False), "stencil"
+    if name == "lap3d":
+        return sparse_laplacian_3d(7, 6, 5, scaled=False), "stencil"
+    if name == "rcm":
+        return _scrambled_banded(rng, n=300, bw=4), "stencil_rcm"
+    if name == "rect":
+        S = sp.random(80, 120, density=0.04, format="csr", random_state=5)
+        return SparseMatrix.from_scipy(S), None
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("name", ["lap2d", "lap3d", "rcm", "rect"])
+def test_plan_matches_scipy(name, dtype):
+    """Every tier plan_spmv can pick agrees with scipy in f32 and f64."""
+    rng = np.random.default_rng(11)
+    A, kind = _case(name, rng)
+    plan = plan_spmv(A).device(dtype=dtype)
+    if kind is not None:
+        assert plan.kind == kind
+    _check(plan, A, rng, dtype)

@@ -1,5 +1,5 @@
-"""DIA + halo-panel stencil SpMV tests (the SoL kernel path), CPU-run with
-interpret-mode Pallas where needed."""
+"""DIA stencil SpMV tests (the XLA DIA form ``plan_spmv`` dispatches
+banded matrices to)."""
 
 import numpy as np
 import pytest
@@ -9,22 +9,20 @@ import jax.numpy as jnp
 
 from elemental_tpu.matrices import sparse_laplacian_2d, sparse_laplacian_3d
 from elemental_tpu.sparse import SparseMatrix, to_dia
-from elemental_tpu.kernels.spmv import (build_halo_panel, plan_stencil_spmv,
-                                        stencil_spmv)
 
 RNG = np.random.default_rng(31)
 
 
-def _xla_panel_spmv(plan, x):
-    """Reference implementation of the halo-panel math in plain XLA."""
-    xp, pt = build_halo_panel(plan, x)
-    R, C, H = plan.rows, plan.cols, plan.halo
-    w = jnp.asarray(plan.weights)
-    y = jnp.zeros((R, C), x.dtype)
-    for s, (di, dj) in enumerate(plan.shifts):
-        xs = jax.lax.slice(xp, (pt + di, H + dj), (pt + di + R, H + dj + C))
-        y = y + w[s] * xs
-    return y.reshape(-1)[:plan.n]
+def _banded(n, offs):
+    rows, cols, vals = [], [], []
+    for off in offs:
+        lo, hi = max(0, -off), min(n, n - off)
+        r = np.arange(lo, hi)
+        rows.append(r)
+        cols.append(r + off)
+        vals.append(RNG.standard_normal(hi - lo))
+    return SparseMatrix.from_coo(n, n, np.concatenate(rows),
+                                 np.concatenate(cols), np.concatenate(vals))
 
 
 def test_to_dia_roundtrip():
@@ -48,48 +46,38 @@ def test_to_dia_rejects_unstructured():
 def test_stencil_plan_xla_math(dims):
     A = sparse_laplacian_2d(*dims, scaled=False)
     dia = to_dia(A)
-    plan = plan_stencil_spmv(dia.offsets, dia.diags, A.height, cols=16)
+    assert dia.offsets == (-dims[1], -1, 0, 1, dims[1])
     x = RNG.standard_normal(A.width)
-    y = np.asarray(_xla_panel_spmv(plan, jnp.asarray(x)))
+    y = np.asarray(jax.jit(lambda d, v: d.matvec(v))(dia.device(),
+                                                     jnp.asarray(x)))
     np.testing.assert_allclose(y, A.to_dense() @ x, rtol=1e-10)
 
 
 def test_stencil_plan_3d():
     A = sparse_laplacian_3d(5, 5, 5, scaled=False)
     dia = to_dia(A)
-    plan = plan_stencil_spmv(dia.offsets, dia.diags, A.height, cols=32)
-    x = RNG.standard_normal(125)
-    y = np.asarray(_xla_panel_spmv(plan, jnp.asarray(x)))
-    np.testing.assert_allclose(y, A.to_dense() @ x, rtol=1e-10)
+    assert len(dia.offsets) == 7
+    X = RNG.standard_normal((125, 3))
+    Y = np.asarray(dia.device().matmat(jnp.asarray(X)))
+    np.testing.assert_allclose(Y, A.to_dense() @ X, rtol=1e-10)
 
 
 def test_stencil_banded_random():
     """General banded matrix (not a PDE stencil)."""
     n = 200
-    offs = [-13, -1, 0, 2, 17]
-    rows, cols, vals = [], [], []
-    for off in offs:
-        lo, hi = max(0, -off), min(n, n - off)
-        r = np.arange(lo, hi)
-        rows.append(r)
-        cols.append(r + off)
-        vals.append(RNG.standard_normal(hi - lo))
-    A = SparseMatrix.from_coo(n, n, np.concatenate(rows),
-                              np.concatenate(cols), np.concatenate(vals))
+    A = _banded(n, [-13, -1, 0, 2, 17])
     dia = to_dia(A)
-    plan = plan_stencil_spmv(dia.offsets, dia.diags, n, cols=32)
     x = RNG.standard_normal(n)
-    y = np.asarray(_xla_panel_spmv(plan, jnp.asarray(x)))
+    y = np.asarray(dia.device().matvec(jnp.asarray(x)))
     np.testing.assert_allclose(y, A.to_dense() @ x, rtol=1e-10)
 
 
-def test_stencil_pallas_interpret():
-    """Pallas kernel in interpreter mode (no TPU needed)."""
-    from jax.experimental.pallas import tpu as pltpu
-    A = sparse_laplacian_2d(16, 16, scaled=False)
+def test_to_dia_rectangular_offsets():
+    """Offsets beyond the square part (width > height) stay exact."""
+    A = SparseMatrix.from_coo(4, 7, [0, 1, 2, 3, 3], [0, 5, 2, 6, 0],
+                              [1.0, 2.0, 3.0, 4.0, 5.0])
     dia = to_dia(A)
-    plan = plan_stencil_spmv(dia.offsets, dia.diags, A.height, cols=16)
-    x = RNG.standard_normal(256)
-    with pltpu.force_tpu_interpret_mode():
-        y = np.asarray(stencil_spmv(plan, jnp.asarray(x), tile_rows=8))
-    np.testing.assert_allclose(y, A.to_dense() @ x, rtol=1e-10)
+    assert dia.offsets == (-3, 0, 3, 4)
+    x = RNG.standard_normal(7)
+    y = np.asarray(dia.device().matvec(jnp.asarray(x)))
+    np.testing.assert_allclose(y, A.to_dense() @ x, rtol=1e-12)

@@ -115,7 +115,7 @@ def test_spgemm_plan_reuse():
 
 
 def test_galerkin_adat():
-    """A·diag(d)·Aᵀ — BASELINE config #3."""
+    """A·diag(d)·Aᵀ — the Galerkin configuration."""
     A = _random_sparse(25, 40, 0.12)
     d = np.abs(RNG.standard_normal(40)) + 0.1
     C = syrk_sparse(A, d)
@@ -238,7 +238,7 @@ def test_dist_multiply_orientations(grid8):
 def test_dist_spmv_no_full_allgather(grid8):
     """The halo-compressed SpMV must NOT replicate x: the compiled HLO's
     collectives move only the footprint (p·H ≪ n); assert no all-gather of
-    the full vector appears (VERDICT round-1 item #3 done-criterion)."""
+    the full vector appears."""
     import jax
     A = sparse_laplacian_2d(16, 16)      # n = 256; halo H = 16 per shard
     dA = DistSparseMatrix.from_sparse(A, grid8)
@@ -260,8 +260,7 @@ def test_dist_spmv_no_full_allgather(grid8):
 
 
 def test_dist_spgemm_matches_single_chip(grid8):
-    """Distributed SpGEMM == single-chip spgemm (VERDICT r2 #5 done
-    criterion) on the 8-device mesh, rectangular + non-divisible shapes."""
+    """Distributed SpGEMM == single-device spgemm on the 8-device mesh, rectangular + non-divisible shapes."""
     import scipy.sparse as sp
     from elemental_tpu.sparse.matmul import dist_spgemm, spgemm
     Ra = sp.random(83, 61, density=0.1, format="csr", random_state=5)

@@ -65,3 +65,26 @@ def test_facade_dist_front_end_to_end(grid8):
     x = np.asarray(f.solve(b))
     r = np.linalg.norm(A.to_scipy() @ x - b) / np.linalg.norm(b)
     assert r < f.residual_bound()
+
+
+def test_facade_dist_front_off_by_default(grid8, monkeypatch):
+    """Without ``ELEMENTAL_DIST_FRONT_MIN`` the mesh factor keeps every
+    front on the batched path, with its flat pool replicated."""
+    import elemental_tpu.sparse_direct.dist_front as df
+    from elemental_tpu.sparse import DistSparseMatrix
+    from elemental_tpu.sparse_direct import DistSparseLDLFactorization
+
+    def never(*a, **k):
+        raise AssertionError("dist_front engaged without the opt-in")
+
+    monkeypatch.delenv("ELEMENTAL_DIST_FRONT_MIN", raising=False)
+    monkeypatch.setattr(df, "dist_partial_ldl", never)
+    A = sparse_laplacian_3d(10, 10, 10, scaled=False)
+    f = DistSparseLDLFactorization(spd=True)
+    f.initialize(DistSparseMatrix.from_sparse(A, grid8), cutoff=32)
+    f.factor()
+    assert f.numeric.pool.sharding.is_fully_replicated
+    b = RNG.standard_normal(A.height)
+    x = np.asarray(f.solve(b))
+    r = np.linalg.norm(A.to_scipy() @ x - b) / np.linalg.norm(b)
+    assert r < f.residual_bound()

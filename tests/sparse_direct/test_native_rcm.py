@@ -39,3 +39,27 @@ def test_dispatch_prefers_native_and_matches_fallback_quality():
     perm = ordering.reverse_cuthill_mckee(A)
     assert sorted(perm.tolist()) == list(range(A.height))
     assert _bandwidth(A, perm) <= 2 * bw + 1
+
+
+def test_native_build_failure_warns(monkeypatch):
+    """A failed build of the native library is reported with the
+    compiler's error, and the NumPy orderings take over."""
+    import os
+    import subprocess
+    import warnings
+    from elemental_tpu.sparse_direct import native
+
+    def failing_make(*args, **kwargs):
+        raise subprocess.CalledProcessError(
+            2, args[0], stderr="symbolic.cpp:1:1: error: no compiler")
+
+    exists = os.path.exists
+    monkeypatch.setattr(native, "_TRIED", False)
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(subprocess, "run", failing_make)
+    monkeypatch.setattr(os.path, "exists",
+                        lambda p: False if p.endswith(".so") else exists(p))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        assert not native.available()
+    assert any("error: no compiler" in str(w.message) for w in caught)

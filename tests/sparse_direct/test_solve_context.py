@@ -1,9 +1,8 @@
 """Solve-context (precomputed panel inverses) vs substitution parity.
 
 The at-scale FGMRES preconditioner applies explicit per-level panel
-inverses (``LDLFactorization.solve_context``, r5 — EXPERIMENTS §E5.7:
-527.9 → 172.0 ms/solve at N=150,528) instead of chunked triangular
-solves.  These tests pin the semantics: in f64 on well-conditioned
+inverses (``LDLFactorization.solve_context``) instead of batched
+triangular solves.  These tests pin the semantics: in f64 on well-conditioned
 panels the two paths agree to roundoff, for both the SPD and the
 indefinite (KKT) factor kinds, through jit.
 """

@@ -171,7 +171,7 @@ def test_factor_gflops_accounting():
 
 
 def test_blocked_front_kernel_matches_rank1():
-    """The blocked right-looking MXU front kernel must agree with the
+    """The blocked right-looking front kernel must agree with the
     rank-1 reference kernel on random padded fronts."""
     import jax.numpy as jnp
     from elemental_tpu.sparse_direct import numeric as N
